@@ -3,11 +3,13 @@
 Same flags and stdout as `pseudoaligner_tpu.cli` for these two commands
 (`map` writes one record per read in the reference's debug format
 `(flag, "read_id", [eq, class], coverage)`), plus `--device {cuda,cpu}`.
-Paired-end `map`, `count`, `mappability`, `idxstats`, `inspect` and the
-mphf/bucket1 seed indexes are not ported yet and raise NotImplementedError.
+`map --seed-index` takes all three seed indexes (cuckoo, bucket1, mphf).
+Paired-end `map`, `count`, `mappability`, `idxstats` and `inspect` are not
+ported yet and raise NotImplementedError.
 
     python -m pseudoaligner_torch index -i IDX transcripts.fa
     python -m pseudoaligner_torch map -i IDX reads.fq --device cuda > out
+    python -m pseudoaligner_torch map -i IDX reads.fq --seed-index mphf
 """
 
 from __future__ import annotations
@@ -17,13 +19,78 @@ import logging
 import os
 import sys
 
-from pseudoaligner_tpu.cli import _check_k, _serving_config, make_ticker
+import numpy as np
 
 from . import __version__
+from .config import AlignerConfig
 
 log = logging.getLogger("pseudoaligner_torch")
 
 NOT_PORTED = ("count", "mappability", "idxstats", "inspect")
+USAGE_KMER_SUPPORTED = (20, 64)
+
+
+def _rust_f32_str(v: float) -> str:
+    """Rust `{}` Display for f32 (shortest roundtrip, positional)."""
+    f = np.float32(v)
+    if np.isnan(f):
+        return "NaN"
+    return np.format_float_positional(f, unique=True, trim="-")
+
+
+def make_ticker(stream=None, every: int = 1_000_000):
+    """Reference-style stderr progress ticker for the fast emit paths
+    (src/pseudoaligner.rs:497-504): prints `\\rDone Mapping N reads w/
+    Rate: X` at every N = multiple of `every`.  The fast paths advance in
+    whole batches, so the printed N is the crossed multiple and the rate
+    is computed at the batch boundary (the record path computes it at the
+    exact millionth record — same shape, batch-granular rate)."""
+
+    state = [every]
+
+    def tick(n_reads: int, n_mapped: int) -> None:
+        s = stream if stream is not None else sys.stderr
+        while n_reads >= state[0]:
+            frac = (np.float32(n_mapped) * np.float32(100.0)
+                    / np.float32(n_reads))
+            s.write(
+                f"\rDone Mapping {state[0]} reads w/ Rate: {_rust_f32_str(frac)}"
+            )
+            s.flush()
+            state[0] += every
+
+    return tick
+
+
+def _check_k(k: int) -> bool:
+    if k not in USAGE_KMER_SUPPORTED:
+        # reference prints and exits 0 (src/bin/pseudoaligner.rs:89-95)
+        print(f"Kmer size = {k} is not supported. Set kmer size to 20 or 64")
+        return False
+    return True
+
+
+def _serving_config(k: int, args) -> AlignerConfig:
+    """The reference CLI's serving shape: compact EC output at
+    distinct_cap=3 with read-length-proportional walk caps and a matching
+    node buffer.  Lanes the caps cut off take the exact host re-map (-3
+    channel), so per-read output is byte-identical to the uncapped debug
+    shape — the caps only move rare work to the overlapped host mapper."""
+    wcap = max(3, args.max_read_len // 20)
+    lcap = 2
+    kw = {}
+    if hasattr(args, "seed_index"):  # count has no flag: dataclass default
+        kw["seed_index"] = args.seed_index
+    return AlignerConfig(
+        k=k,
+        batch_size=args.batch_size,
+        max_read_len=args.max_read_len,
+        distinct_cap=3,
+        max_walk_iters=wcap,
+        max_left_iters=lcap,
+        max_nodes=wcap + lcap + 2,
+        **kw,
+    )
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -60,7 +127,9 @@ def _build_parser() -> argparse.ArgumentParser:
                          "TCC files to the output directory")
     sp.add_argument("--seed-index", choices=["cuckoo", "bucket1", "mphf"],
                     default="cuckoo",
-                    help="seed structure (only cuckoo is ported)")
+                    help="seed structure: cuckoo (two 4-slot buckets), "
+                         "bucket1 (one 16-slot bucket) or mphf "
+                         "(memory-lean BBHash with a stored-key verify)")
     sp.add_argument("--skip-reads", type=int, default=0,
                     help="resume: skip the first N reads (append records "
                          "for the remainder)")
@@ -77,7 +146,7 @@ def _build_parser() -> argparse.ArgumentParser:
 
 def open_index(path: str):
     """The IndexImage that `index` saved at `path`."""
-    from pseudoaligner_tpu.serde import load_index
+    from .serde import load_index
 
     return load_index(path)
 
@@ -94,9 +163,9 @@ def serving_config(k: int, batch_size: int, max_read_len: int,
 
 
 def cmd_index(args) -> int:
-    from pseudoaligner_tpu.index.builder import build_index
-    from pseudoaligner_tpu.io.fasta import read_transcripts
-    from pseudoaligner_tpu.serde import save_index
+    from .index.builder import build_index
+    from .io.fasta import read_transcripts
+    from .serde import save_index
 
     log.info("Building index from fasta")
     seqs, tx_names, tx_gene_map = read_transcripts(args.ref_fasta)
@@ -135,7 +204,7 @@ def cmd_map(args, outdir: str) -> int:
         device=args.device)
     tcc = None
     if args.tcc:
-        from pseudoaligner_tpu.tcc import TccCounter
+        from .tcc import TccCounter
 
         tcc = TccCounter()
 
@@ -170,9 +239,6 @@ def main(argv=None) -> int:
     )
     if args.cmd in NOT_PORTED:
         raise NotImplementedError(f"`{args.cmd}` is not ported yet")
-    if args.cmd == "map" and args.seed_index != "cuckoo":
-        raise NotImplementedError(
-            f"--seed-index {args.seed_index} is not ported yet")
     outdir = getattr(args, "outdir", None) or os.getcwd()
     os.makedirs(outdir, exist_ok=True)
     if not _check_k(args.kmer_size):

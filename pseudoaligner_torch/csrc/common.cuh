@@ -1,12 +1,19 @@
-// Shared device code of the mapping kernels (seed.cu, walk.cu): launch
-// parameters, 2-bit base access, the k-mer hash and the cuckoo probe.
+// Shared device code of the mapping kernels (seed.cu, walk.cu, stats.cu):
+// launch parameters, 2-bit base access, the k-mer hash and the three seed
+// index probes (cuckoo, bucket1, MPHF with a stored-key verify).
 //
 // Layouts (see pseudoaligner_torch/ops/map_kernel.py):
 //   packed      [B, nw] uint32, base i of a read at bits 2*(i%16) of word i/16
 //   pool        [R*8] uint32, the same packing over the padded sequence pool
 //   node_row    [N, 12] int32: start(+pad), len, exts, ec, r_edge[4], l_edge[4]
-//   cuckoo      [NB, 4*W] uint32 keys; empty slots hold all-ones keys
-//   cuckoo_vals [NB*4*2] uint32 flat (node, offset) per slot
+//   cuckoo      cuckoo mode:  [NB, 4*W] uint32 keys; empty slots hold
+//                             all-ones keys
+//               bucket1 mode: [NB, 16*(W+2)] uint32 rows of (key words, node,
+//                             offset) slots; empty slots have node EMPTY
+//   cuckoo_vals [NB*4*2] uint32 flat (node, offset) per cuckoo slot
+//   mphf_bits   [bw] uint32 level bit words, mphf_ranks [bw] set bits of the
+//               level before each word; kmer_keys [nk, W] uint32,
+//               kmer_node / kmer_offset [nk] int32, all in MPHF slot order
 //   nh3         [B, P, 3] int32 (q, node, off)
 #pragma once
 
@@ -15,11 +22,19 @@
 
 namespace pa {
 
-// must match pseudoaligner_tpu/index/cuckoo.py
+// must match pseudoaligner_torch/index/cuckoo.py and index/mphf.py
 constexpr uint32_t H1_SEED = 0x13579BDFu;
 constexpr uint32_t H2_SEED = 0x2468ACE0u;
+constexpr uint32_t EMPTY = 0xFFFFFFFFu;
 constexpr int SLOTS = 4;
+constexpr int B1_SLOTS = 16;
 constexpr int MAX_W = 4;  // k <= 64
+constexpr int MAX_LEVELS = 48;
+
+// seed index kinds, in the order of SEED_INDEXES in ops/map_kernel.py
+constexpr int MODE_CUCKOO = 0;
+constexpr int MODE_BUCKET1 = 1;
+constexpr int MODE_MPHF = 2;
 
 // Launch parameters.  The C entry points fill this from an int64 array in
 // the order of PARAM_NAMES in ops/kernels.py.
@@ -28,8 +43,21 @@ struct Params {
   uint32_t cuckoo_mask;
   int ones_node, ones_off;
   int allowed, max_nodes, lcap, wcap, dc, ec16, cov8;
+  int mode;
+  uint32_t bucket_seed;
+  int n_levels;
   float left_frac;
 };
+
+// The MPHF's per-level metadata, passed to the kernels by value (768 B of
+// kernel parameters).  It follows the fixed parameters in the int64 array:
+// n_levels seeds, then masks, word offsets and key offsets.
+struct Levels {
+  uint32_t seed[MAX_LEVELS], mask[MAX_LEVELS], word_off[MAX_LEVELS],
+      key_off[MAX_LEVELS];
+};
+
+constexpr int N_FIXED = 18;  // entries of PARAM_NAMES
 
 inline Params params_from(const int64_t* v, float left_frac) {
   Params p;
@@ -50,15 +78,56 @@ inline Params params_from(const int64_t* v, float left_frac) {
   p.dc = (int)v[12];
   p.ec16 = (int)v[13];
   p.cov8 = (int)v[14];
+  p.mode = (int)v[15];
+  p.bucket_seed = (uint32_t)v[16];
+  p.n_levels = v[17] < MAX_LEVELS ? (int)v[17] : MAX_LEVELS;
   p.left_frac = left_frac;
   return p;
+}
+
+inline Levels levels_from(const int64_t* v) {
+  Levels lv = {};
+  const int n = (int)v[17];  // the array holds n of each column
+  const int64_t* a = v + N_FIXED;
+  for (int i = 0; i < n && i < MAX_LEVELS; i++) {
+    lv.seed[i] = (uint32_t)a[i];
+    lv.mask[i] = (uint32_t)a[n + i];
+    lv.word_off[i] = (uint32_t)a[2 * n + i];
+    lv.key_off[i] = (uint32_t)a[3 * n + i];
+  }
+  return lv;
+}
+
+// The seed index's device arrays; the C entry points fill it from a host
+// array of pointers in the order of INDEX_ARRAYS in ops/kernels.py.  The
+// arrays a mode does not read may be empty.
+struct Index {
+  const uint32_t* cuckoo;
+  const uint32_t* vals;
+  const uint32_t* bits;
+  const uint32_t* ranks;
+  const uint32_t* keys;
+  const int32_t* knode;
+  const int32_t* koff;
+};
+
+inline Index index_from(const int64_t* ptrs) {
+  Index ix;
+  ix.cuckoo = reinterpret_cast<const uint32_t*>(ptrs[0]);
+  ix.vals = reinterpret_cast<const uint32_t*>(ptrs[1]);
+  ix.bits = reinterpret_cast<const uint32_t*>(ptrs[2]);
+  ix.ranks = reinterpret_cast<const uint32_t*>(ptrs[3]);
+  ix.keys = reinterpret_cast<const uint32_t*>(ptrs[4]);
+  ix.knode = reinterpret_cast<const int32_t*>(ptrs[5]);
+  ix.koff = reinterpret_cast<const int32_t*>(ptrs[6]);
+  return ix;
 }
 
 __device__ __forceinline__ int base_at(const uint32_t* words, int p) {
   return (int)((words[p >> 4] >> ((p & 15) * 2)) & 3u);
 }
 
-// murmur3 fmix32, bit-identical to pseudoaligner_tpu/ops/hashing.py
+// murmur3 fmix32, bit-identical to pseudoaligner_torch/ops/hashing.py
 __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   h ^= h >> 16;
   h *= 0x85EBCA6Bu;
@@ -121,6 +190,95 @@ __device__ __forceinline__ void cuckoo_probe(const Params& p,
       *off = p.ones_off;
     }
   }
+}
+
+// Single-hash probe of one B1_SLOTS-slot row (hash seed p.bucket_seed, which
+// the build may have re-salted); the first slot whose node is not EMPTY and
+// whose key matches wins.  Empty slots hold zero keys, so without the node
+// check the all-A k-mer would match them.  The all-ones k-mer is an
+// ordinary key here.
+__device__ __forceinline__ void bucket1_probe(const Params& p,
+                                              const uint32_t* rows,
+                                              const uint32_t* w, int* node,
+                                              int* off) {
+  const int W = p.W, S = W + 2;
+  const uint32_t h = hash_words(w, W, p.bucket_seed) & p.cuckoo_mask;
+  const uint32_t* row = rows + (size_t)h * (B1_SLOTS * S);
+  *node = -1;
+  *off = -1;
+  for (int s = 0; s < B1_SLOTS; s++) {
+    const uint32_t* slot = row + s * S;
+    if (slot[W] == EMPTY) continue;
+    bool eq = true;
+    for (int j = 0; j < W; j++) eq = eq && (slot[j] == w[j]);
+    if (eq) {
+      *node = (int)slot[W];
+      *off = (int)slot[W + 1];
+      return;
+    }
+  }
+}
+
+// BBHash level probe: per level, hash with the level's seed, mask, read the
+// bit word and its rank word; the first level whose bit is set gives the
+// slot key_off + rank + popcount(bits below), in 32-bit arithmetic as the
+// reference's int32.  -1 when no level's bit is set.  An alien k-mer can
+// land on a set bit: the caller verifies the stored key.
+__device__ __forceinline__ int mphf_slot(const Params& p, const Levels& lv,
+                                         const uint32_t* bits,
+                                         const uint32_t* ranks,
+                                         const uint32_t* w) {
+  for (int l = 0; l < p.n_levels; l++) {
+    const uint32_t h = hash_words(w, p.W, lv.seed[l]) & lv.mask[l];
+    const uint32_t wi = lv.word_off[l] + (h >> 5);
+    const uint32_t word = bits[wi];
+    const uint32_t bp = h & 31u;
+    if ((word >> bp) & 1u) {
+      const uint32_t below = word & ((1u << bp) - 1u);
+      return (int)(lv.key_off[l] + ranks[wi] + (uint32_t)__popc(below));
+    }
+  }
+  return -1;
+}
+
+// Whether the key stored at MPHF slot `slot` equals the query words.
+__device__ __forceinline__ bool key_at_slot_equals(const uint32_t* keys,
+                                                   int slot, int W,
+                                                   const uint32_t* w) {
+  const uint32_t* stored = keys + (size_t)slot * W;
+  bool eq = true;
+  for (int j = 0; j < W; j++) eq = eq && (stored[j] == w[j]);
+  return eq;
+}
+
+// MPHF probe plus the stored-key verify: (node, offset) at the slot when the
+// key there equals the query, else (-1, -1).
+__device__ __forceinline__ void mphf_verified_probe(const Params& p,
+                                                    const Levels& lv,
+                                                    const Index& ix,
+                                                    const uint32_t* w,
+                                                    int* node, int* off) {
+  const int slot = mphf_slot(p, lv, ix.bits, ix.ranks, w);
+  if (slot >= 0 && key_at_slot_equals(ix.keys, slot, p.W, w)) {
+    *node = ix.knode[slot];
+    *off = ix.koff[slot];
+  } else {
+    *node = -1;
+    *off = -1;
+  }
+}
+
+// The seed probe of the index kind p.mode (ops/map_kernel.py seed_probe).
+__device__ __forceinline__ void seed_probe(const Params& p, const Levels& lv,
+                                           const Index& ix,
+                                           const uint32_t* w, int* node,
+                                           int* off) {
+  if (p.mode == MODE_BUCKET1)
+    bucket1_probe(p, ix.cuckoo, w, node, off);
+  else if (p.mode == MODE_MPHF)
+    mphf_verified_probe(p, lv, ix, w, node, off);
+  else
+    cuckoo_probe(p, ix.cuckoo, ix.vals, w, node, off);
 }
 
 }  // namespace pa

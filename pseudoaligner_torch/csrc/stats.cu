@@ -1,0 +1,96 @@
+// K3, the seed-statistics kernel: a batch of 2-bit packed reads -> three
+// counters (valid k-mer positions, verified MPHF hits, MPHF false
+// positives).
+//
+// Replaces pseudoaligner_tpu/ops/stats.py::_stats_impl (with unpack_reads,
+// all_kmers, mphf_probe and the stored-key verify).
+//
+// One thread per (read, position p).  A position is valid when
+// p <= len - k.  For a valid position the thread rolls the k-mer's words
+// from the packed read, runs the MPHF level probe (common.cuh mphf_slot)
+// and compares the key stored at the slot: a hit when it equals, a false
+// positive when a slot came back but the key differs.  Each block sums its
+// threads' three flags (warp shuffles, then one warp over the per-warp
+// sums) and adds them to the int64 counters with one atomicAdd each; the
+// wrapper zeroes the counters before the launch.
+//
+// Bound on the H100: memory bytes.  Per valid position, the MPHF's bit and
+// rank words of each level tried and the W-word stored key at the slot,
+// random reads from arrays far larger than the 50 MB L2 at GENCODE scale.
+// The counters cost one atomic per block.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+
+__global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
+                             const uint32_t* __restrict__ packed,
+                             const int32_t* __restrict__ lens, pa::Index ix,
+                             unsigned long long* __restrict__ counts) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned valid = 0, hit = 0, fp = 0;
+  if (t < (int64_t)p.B * p.P) {
+    const int b = (int)(t / p.P);
+    const int pos = (int)(t % p.P);
+    if (pos <= lens[b] - p.k) {
+      valid = 1;
+      uint32_t w[pa::MAX_W];
+      pa::kmer_words(packed + (size_t)b * p.nw, pos, p.k, p.W, w);
+      const int slot = pa::mphf_slot(p, lv, ix.bits, ix.ranks, w);
+      if (slot >= 0) {
+        if (pa::key_at_slot_equals(ix.keys, slot, p.W, w))
+          hit = 1;
+        else
+          fp = 1;
+      }
+    }
+  }
+  for (int d = 16; d > 0; d >>= 1) {
+    valid += __shfl_down_sync(0xFFFFFFFFu, valid, d);
+    hit += __shfl_down_sync(0xFFFFFFFFu, hit, d);
+    fp += __shfl_down_sync(0xFFFFFFFFu, fp, d);
+  }
+  __shared__ unsigned part[3][THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    part[0][warp] = valid;
+    part[1][warp] = hit;
+    part[2][warp] = fp;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    valid = lane < THREADS / 32 ? part[0][lane] : 0;
+    hit = lane < THREADS / 32 ? part[1][lane] : 0;
+    fp = lane < THREADS / 32 ? part[2][lane] : 0;
+    for (int d = 16; d > 0; d >>= 1) {
+      valid += __shfl_down_sync(0xFFFFFFFFu, valid, d);
+      hit += __shfl_down_sync(0xFFFFFFFFu, hit, d);
+      fp += __shfl_down_sync(0xFFFFFFFFu, fp, d);
+    }
+    if (lane == 0) {
+      if (valid) atomicAdd(&counts[0], (unsigned long long)valid);
+      if (hit) atomicAdd(&counts[1], (unsigned long long)hit);
+      if (fp) atomicAdd(&counts[2], (unsigned long long)fp);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int pa_stats(const int64_t* params, const int64_t* index,
+                        int device, const uint32_t* packed,
+                        const int32_t* lens, unsigned long long* counts,
+                        void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  pa::Params p = pa::params_from(params, 0.0f);
+  if (p.B == 0) return 0;
+  const pa::Levels lv = pa::levels_from(params);
+  const int64_t n = (int64_t)p.B * p.P;
+  const int blocks = (int)((n + THREADS - 1) / THREADS);
+  stats_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      p, lv, packed, lens, pa::index_from(index), counts);
+  return (int)cudaGetLastError();
+}

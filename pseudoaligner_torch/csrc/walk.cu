@@ -14,8 +14,9 @@
 //     forward loop, where each lazy seek probe costs one whole iteration;
 //     a read still active at a cap, or with more pushes than max_nodes, is
 //     "capped" (-3);
-//   - lazy re-seeds: on-grid positions (kpos % 3 == 0) read nh3, off-grid
-//     positions probe the cuckoo table in place and step by 3 on a miss;
+//   - lazy re-seeds (cuckoo and bucket1): on-grid positions (kpos % 3 == 0)
+//     read nh3, off-grid positions probe the seed index in place
+//     (common.cuh seed_probe) and step by 3 on a miss;
 //   - output: compact run-length EC ids in distinct_cap slots (-2 on
 //     overflow, -3 when capped, int16/uint8 narrowing), or the full node
 //     list when distinct_cap == 0.
@@ -23,8 +24,8 @@
 // only the first max_nodes pushes are stored, n_nodes counts all.
 //
 // Bound on the H100: a latency-bound, divergent pointer chase.  Each step
-// reads a 48-byte node row, a few pool words and, on seek, two cuckoo
-// buckets, all dependent loads from tables far larger than L2 at GENCODE
+// reads a 48-byte node row, a few pool words and, on seek, the seed
+// index's bucket rows, all dependent loads from tables far larger than L2 at GENCODE
 // scale; reads finish after different numbers of steps, so warps diverge.
 // This first version keeps one thread per read and relies on many reads in
 // flight to hide latency; warp-cooperative walks are later work.
@@ -33,13 +34,12 @@
 
 namespace {
 
-__global__ void walk_kernel(pa::Params p, const uint32_t* __restrict__ packed,
+__global__ void walk_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
+                            const uint32_t* __restrict__ packed,
                             const int32_t* __restrict__ lens,
                             const int32_t* __restrict__ nh3,
                             const uint32_t* __restrict__ pool,
-                            const int32_t* __restrict__ node_row,
-                            const uint32_t* __restrict__ cuckoo,
-                            const uint32_t* __restrict__ vals,
+                            const int32_t* __restrict__ node_row, pa::Index ix,
                             int32_t* __restrict__ buf,
                             uint8_t* __restrict__ mapped_out,
                             void* __restrict__ cov_out,
@@ -123,7 +123,7 @@ __global__ void walk_kernel(pa::Params p, const uint32_t* __restrict__ packed,
         // one exact probe at kpos costs this whole iteration
         int pn, po;
         pa::kmer_words(read, kpos, k, p.W, w);
-        pa::cuckoo_probe(p, cuckoo, vals, w, &pn, &po);
+        pa::seed_probe(p, lv, ix, w, &pn, &po);
         if (pn >= 0) {
           node = pn;
           koff = po;
@@ -223,21 +223,22 @@ __global__ void walk_kernel(pa::Params p, const uint32_t* __restrict__ packed,
 
 }  // namespace
 
-extern "C" int pa_walk(const int64_t* params, float left_frac, int device,
-                       const uint32_t* packed, const int32_t* lens,
-                       const int32_t* nh3, const uint32_t* pool,
-                       const int32_t* node_row, const uint32_t* cuckoo,
-                       const uint32_t* vals, int32_t* buf, uint8_t* mapped,
+extern "C" int pa_walk(const int64_t* params, const int64_t* index,
+                       float left_frac, int device, const uint32_t* packed,
+                       const int32_t* lens, const int32_t* nh3,
+                       const uint32_t* pool, const int32_t* node_row,
+                       int32_t* buf, uint8_t* mapped,
                        void* coverage, int32_t* mismatches, int32_t* n_nodes,
                        void* ec_distinct, int32_t* nodes, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   pa::Params p = pa::params_from(params, left_frac);
   if (p.B == 0) return 0;
+  const pa::Levels lv = pa::levels_from(params);
   const int threads = 128;
   int blocks = (p.B + threads - 1) / threads;
   walk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      p, packed, lens, nh3, pool, node_row, cuckoo, vals, buf, mapped,
-      coverage, mismatches, n_nodes, ec_distinct, nodes);
+      p, lv, packed, lens, nh3, pool, node_row, pa::index_from(index), buf,
+      mapped, coverage, mismatches, n_nodes, ec_distinct, nodes);
   return (int)cudaGetLastError();
 }

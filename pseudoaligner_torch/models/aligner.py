@@ -9,9 +9,9 @@ reference's.
 
 The host-side NumPy helpers and the emit, re-map and long-read merge
 methods are copied from the reference unchanged; only the device-touching
-parts are rewritten.  Paired-end mapping, single-cell counting, the mphf
-and bucket1 seed modes and the bitset EC path are not ported yet and raise
-NotImplementedError.
+parts are rewritten.  All three seed indexes (cuckoo, bucket1, mphf)
+serve.  Paired-end mapping, single-cell counting and the bitset EC path
+are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,11 +24,10 @@ import weakref
 import numpy as np
 import torch
 
-from pseudoaligner_tpu.config import AlignerConfig
-from pseudoaligner_tpu.index.image import IndexImage
-from pseudoaligner_tpu.io.fastq import FastqReader, ReadBatch
-from pseudoaligner_tpu.pipeline import DepthPipeline, prefetch_iter
-
+from ..config import AlignerConfig
+from ..index.image import IndexImage
+from ..io.fastq import FastqReader, ReadBatch
+from ..pipeline import DepthPipeline, prefetch_iter
 from ..ops.map_kernel import (
     NATIVE_ERRORS,
     MapResult,
@@ -267,10 +266,6 @@ class Pseudoaligner:
             config = AlignerConfig(k=image.k)
         if config.k != image.k:
             raise ValueError(f"config k={config.k} != index k={image.k}")
-        if config.seed_index != "cuckoo":
-            raise NotImplementedError(
-                f"seed_index={config.seed_index!r} is not ported yet; "
-                "only 'cuckoo' is")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -287,7 +282,7 @@ class Pseudoaligner:
             if meta is not None:
                 raise ValueError("meta is only used together with map_step")
             dev_np, self.meta = device_index_from_image(image, config)
-            self.dev = upload(dev_np, self.device)
+            self.dev = upload(dev_np, self.device, serving=self.meta)
         else:
             if meta is None:
                 raise ValueError("map_step requires the engine's meta")
@@ -562,7 +557,7 @@ class Pseudoaligner:
     def emit_finish(self, state) -> bytes:
         """Phase 2: collect the overflow re-map, patch coverage and format
         via the signature-indirect native emitter."""
-        from pseudoaligner_tpu.io import native as _native
+        from ..io import native as _native
 
         batch = state["batch"]
         tcc = state["tcc"]
@@ -626,7 +621,7 @@ class Pseudoaligner:
         long reads take the record path.  Returns (n_reads, n_flagged).
 
         `ticker(n_reads, n_flagged)` fires after each batch's ordered
-        finish (see pseudoaligner_tpu.cli.make_ticker)."""
+        finish (see cli.make_ticker)."""
         reader = FastqReader(
             path,
             batch_size=self.config.batch_size,
@@ -736,7 +731,7 @@ class Pseudoaligner:
         constructed; None when the toolchain is unavailable."""
         if not hasattr(self, "_host_mapper_inst"):
             try:
-                from pseudoaligner_tpu.ops.native import HostMapper
+                from ..ops.native import HostMapper
 
                 self._host_mapper_inst = HostMapper(self.image)
             except NATIVE_ERRORS:
@@ -784,7 +779,8 @@ class Pseudoaligner:
                 # this rare exact re-map
                 dev_np, base_meta = device_index_from_image(
                     self.image, self.config)
-                self._remap_dev = upload(dev_np, self.device)
+                self._remap_dev = upload(dev_np, self.device,
+                                         serving=base_meta)
             # uncapped and exact: the node buffer is decoupled from the
             # serving meta's (which may be as small as the caps allow)
             self._remap_meta = dataclasses.replace(
@@ -811,7 +807,7 @@ class Pseudoaligner:
         C++ batch intersection with a memoized per-row python fallback."""
         m = len(vals)
         try:
-            from pseudoaligner_tpu.ops.native import intersect_ecs
+            from ..ops.native import intersect_ecs
 
             flat, offs = intersect_ecs(
                 vals, self.image.ec_offsets, self.image.ec_txs, int(_SENT)
@@ -936,7 +932,7 @@ class Pseudoaligner:
     def _merge_push(self, state, rec, g, end):
         """Incremental window merger: push one row, return (state, done)
         where done is a finalized ReadRecord or None."""
-        from pseudoaligner_tpu.golden import intersect
+        from ..golden import intersect
 
         if state is None:
             return (g, rec, end), None

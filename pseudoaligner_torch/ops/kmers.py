@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from pseudoaligner_tpu.dna import kmer_words
+from ..dna import kmer_words
 
 
 def all_kmers(reads: torch.Tensor, k: int) -> torch.Tensor:

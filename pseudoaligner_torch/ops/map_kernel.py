@@ -4,13 +4,21 @@ Port of `pseudoaligner_tpu/ops/map_kernel.py` for the single-end serving
 path.  One batch of 2-bit packed reads goes through two passes:
 
 - the seed pass (`seed_tables`): every probed read position's k-mer is
-  looked up in the two-bucket, 4-slot cuckoo table, and a stride-3
-  next-hit table `nh3 [B, P, 3]` gives, for each position p, the nearest
-  hit q >= p on p's residue grid with its (node, offset);
+  looked up in the seed index, and a stride-3 next-hit table
+  `nh3 [B, P, 3]` gives, for each position p, the nearest hit q >= p on
+  p's residue grid with its (node, offset);
 - the walk (`walk`): per read, left extension under the per-segment SNP
   budget, then the forward unitig walk with re-seeds from `nh3` (or lazy
   seek probes off the residue-0 grid), iteration caps, and the compact
   run-length EC-id output (or the full node list when distinct_cap = 0).
+
+The seed index (`MapMeta.seed_index`, `seed_probe`) is one of:
+
+- "cuckoo": two candidate 4-slot buckets of keys, values apart;
+- "bucket1": one 16-slot bucket of (key, node, offset) slots
+  (index/cuckoo.py build_bucket1);
+- "mphf": the BBHash MPHF with a stored-key verify (ops/mphf_lookup.py).
+  It has no lazy seeds: every position of every residue is probed up front.
 
 `map_batch_packed` runs the CUDA kernels (ops/kernels.py, csrc/seed.cu and
 csrc/walk.cu) for CUDA tensors and the plain PyTorch passes below for CPU
@@ -33,28 +41,38 @@ the reference re-maps its -3 reads exactly on the host.
 from __future__ import annotations
 
 import subprocess
+import warnings
 from dataclasses import dataclass, fields
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from pseudoaligner_tpu import dna
-from pseudoaligner_tpu.config import AlignerConfig
-from pseudoaligner_tpu.index.cuckoo import (
+from .. import dna
+from ..config import AlignerConfig
+from ..index.cuckoo import (
+    B1_SLOTS,
     EMPTY as CK_EMPTY,
     H1_SEED,
     H2_SEED,
     SLOTS as CK_SLOTS,
+    build_bucket1,
     build_cuckoo_fast,
 )
-
+from ..index.image import IndexImage
+from ..index.mphf import Mphf
 from .hashing import MASK32, hash_kmer
 from .kmers import all_kmers
+from .mphf_lookup import MphfMeta, verified_lookup
 
-# what loading one of pseudoaligner_tpu's native host helpers raises when
-# its toolchain or library is unavailable (they compile on first use)
+# what loading one of the native host helpers raises when its toolchain or
+# library is unavailable (they compile on first use)
 NATIVE_ERRORS = (ImportError, OSError, subprocess.CalledProcessError)
+
+SEED_INDEXES = ("cuckoo", "bucket1", "mphf")
+# the arrays only the MPHF probe (and batch_stats) reads
+MPHF_ARRAYS = ("mphf_bits", "mphf_ranks", "kmer_keys", "kmer_node",
+               "kmer_offset")
 
 
 @dataclass
@@ -70,9 +88,18 @@ class DeviceIndex:
     #                    meta.pool_pad zero bases at both ends
     node_row: object  # [N, 12] start(+pad), len, exts, ec, r_edge[4],
     #                   l_edge[4]
-    cuckoo: object  # [NB, SLOTS*W] keys-only bucket rows; empty slots hold
-    #                 all-ones keys (a real all-ones k-mer lives in meta)
-    cuckoo_vals: object  # [NB*SLOTS*2] flat (node, offset) slot values
+    cuckoo: object  # cuckoo: [NB, SLOTS*W] keys-only bucket rows, empty
+    #                 slots hold all-ones keys (a real all-ones k-mer lives
+    #                 in meta); bucket1: [NB, B1_SLOTS*(W+2)] rows of
+    #                 (key, node, offset) slots, empty ones with node EMPTY;
+    #                 mphf: a [1, SLOTS*W] dummy
+    cuckoo_vals: object  # cuckoo: [NB*SLOTS*2] flat (node, offset) slot
+    #                      values; else a [2] dummy
+    mphf_bits: object  # [bw] MPHF level bit words
+    mphf_ranks: object  # [bw] set bits of the level before each word
+    kmer_keys: object  # [nk, W] slot-ordered k-mer words
+    kmer_node: object  # [nk] slot -> node
+    kmer_offset: object  # [nk] slot -> offset in the node
 
     def nbytes(self) -> int:
         """Bytes of an uploaded index (tensors)."""
@@ -91,14 +118,19 @@ class MapMeta:
     allowed_mismatches: int
     left_extend_fraction: float
     max_nodes: int
-    cuckoo_mask: int
+    cuckoo_mask: int  # bucket count - 1 (cuckoo and bucket1)
+    seed_index: str = "cuckoo"  # "cuckoo" | "bucket1" | "mphf"
+    bucket_seed: int = 0  # bucket1: the (possibly re-salted) hash seed
+    mphf: MphfMeta = MphfMeta((), (), (), ())
     # the all-ones k-mer's payload when it is a real key (2k == 32W only):
     # empty cuckoo slots hold the all-ones key pattern
     ones_node: int = -1
     ones_off: int = -1
     pool_pad: int = 256
     distinct_cap: int = 0  # compact EC-id output slots; 0 = full output
-    lazy_seeds: bool = False  # probe only residue-0 positions up front
+    # probe only residue-0 positions up front (cuckoo and bucket1 only:
+    # _make_meta turns it off for the MPHF, as the reference does)
+    lazy_seeds: bool = False
     max_walk_iters: int = 0  # 0 = unbounded
     max_left_iters: int = 0  # 0 = unbounded
     ec_out_16: bool = False  # compact EC ids as int16
@@ -139,7 +171,7 @@ def pack_reads_host(codes: np.ndarray) -> np.ndarray:
     """[B, L] uint8 codes -> [B, ceil(L/16)] uint32, 16 bases per word,
     base i at bits 2*(i % 16) (C++ packer, NumPy fallback)."""
     try:
-        from pseudoaligner_tpu.io.native import pack_reads
+        from ..io.native import pack_reads
 
         return pack_reads(np.asarray(codes, dtype=np.uint8))
     except NATIVE_ERRORS:
@@ -174,12 +206,12 @@ def _pool_pad(max_read_len: int) -> int:
 def device_index_from_image(image, config: AlignerConfig):
     """IndexImage -> (DeviceIndex of numpy arrays, MapMeta).
 
-    Cuckoo seed index only.  Builds the same arrays as the reference's
-    `device_index_from_image` at pool_overlap=False; the reference's
+    Builds the same arrays as the reference's `device_index_from_image` at
+    pool_overlap=False, for each of its seed indexes; the reference's
     on-disk devcache is neither read nor written."""
-    if config.seed_index != "cuckoo":
-        raise NotImplementedError(
-            f"seed_index={config.seed_index!r} is not ported; use 'cuckoo'")
+    if config.seed_index not in SEED_INDEXES:
+        raise ValueError(f"seed_index={config.seed_index!r}, expected one "
+                         f"of {SEED_INDEXES}")
     pool_pad = _pool_pad(config.max_read_len)
     W = image.kmer_keys.shape[1]
     pool_rows = _pack_pool_rows(image.seq_pool, pool_pad, pool_pad)
@@ -192,32 +224,49 @@ def device_index_from_image(image, config: AlignerConfig):
     node_row[:, 4:8] = image.r_edge
     node_row[:, 8:12] = image.l_edge
 
-    ck = build_cuckoo_fast(image.kmer_keys, image.kmer_node,
-                           image.kmer_offset)
-    nb = ck.buckets.shape[0]
-    full = ck.buckets.reshape(nb, CK_SLOTS, W + 2)
-    keys = full[:, :, :W].copy()
-    keys[full[:, :, W] == CK_EMPTY] = 0xFFFFFFFF
-    cuckoo = np.ascontiguousarray(keys.reshape(nb, CK_SLOTS * W))
-    cuckoo_vals = np.ascontiguousarray(full[:, :, W : W + 2].reshape(-1))
+    bucket_seed = 0
+    cuckoo_vals = np.zeros(2, np.uint32)
     ones_node = ones_off = -1
-    if image.k * 2 == 32 * W:
-        # the all-ones k-mer is real at word-filling k and collides with
-        # the empty-slot key pattern: its payload rides in meta
-        hit = np.all(image.kmer_keys == np.uint32(0xFFFFFFFF),
-                     axis=1).nonzero()[0]
-        if len(hit):
-            ones_node = int(image.kmer_node[hit[0]])
-            ones_off = int(image.kmer_offset[hit[0]])
+    if config.seed_index == "cuckoo":
+        ck = build_cuckoo_fast(image.kmer_keys, image.kmer_node,
+                               image.kmer_offset)
+        mask = ck.mask
+        nb = ck.buckets.shape[0]
+        full = ck.buckets.reshape(nb, CK_SLOTS, W + 2)
+        keys = full[:, :, :W].copy()
+        keys[full[:, :, W] == CK_EMPTY] = 0xFFFFFFFF
+        cuckoo = np.ascontiguousarray(keys.reshape(nb, CK_SLOTS * W))
+        cuckoo_vals = np.ascontiguousarray(full[:, :, W : W + 2].reshape(-1))
+        if image.k * 2 == 32 * W:
+            # the all-ones k-mer is real at word-filling k and collides
+            # with the empty-slot key pattern: its payload rides in meta
+            hit = np.all(image.kmer_keys == np.uint32(0xFFFFFFFF),
+                         axis=1).nonzero()[0]
+            if len(hit):
+                ones_node = int(image.kmer_node[hit[0]])
+                ones_off = int(image.kmer_offset[hit[0]])
+    elif config.seed_index == "bucket1":
+        cuckoo, mask, bucket_seed = build_bucket1(
+            image.kmer_keys, image.kmer_node, image.kmer_offset)
+    else:
+        cuckoo = np.zeros((1, CK_SLOTS * W), np.uint32)
+        mask = 0
 
-    dev = DeviceIndex(pool_rows=pool_rows, node_row=node_row, cuckoo=cuckoo,
-                      cuckoo_vals=cuckoo_vals)
-    meta = _make_meta(image, config, ck.mask, ones_node, ones_off, pool_pad)
+    dev = DeviceIndex(
+        pool_rows=pool_rows, node_row=node_row, cuckoo=cuckoo,
+        cuckoo_vals=cuckoo_vals,
+        mphf_bits=image.mphf.bits, mphf_ranks=image.mphf.ranks,
+        kmer_keys=image.kmer_keys,
+        kmer_node=image.kmer_node.astype(np.int32),
+        kmer_offset=image.kmer_offset.astype(np.int32))
+    meta = _make_meta(image, config, mask, bucket_seed, ones_node, ones_off,
+                      pool_pad)
     return dev, meta
 
 
 def _make_meta(image, config: AlignerConfig, cuckoo_mask: int,
-               ones_node: int, ones_off: int, pool_pad: int) -> MapMeta:
+               bucket_seed: int, ones_node: int, ones_off: int,
+               pool_pad: int) -> MapMeta:
     compact = config.distinct_cap > 0
     return MapMeta(
         k=image.k,
@@ -226,11 +275,15 @@ def _make_meta(image, config: AlignerConfig, cuckoo_mask: int,
         left_extend_fraction=config.left_extend_fraction,
         max_nodes=config.max_nodes,
         cuckoo_mask=cuckoo_mask,
+        seed_index=config.seed_index,
+        bucket_seed=bucket_seed,
+        mphf=MphfMeta.of(image.mphf),
         ones_node=ones_node,
         ones_off=ones_off,
         pool_pad=pool_pad,
         distinct_cap=config.distinct_cap,
-        lazy_seeds=config.lazy_seeds,
+        lazy_seeds=(config.lazy_seeds
+                    and config.seed_index in ("cuckoo", "bucket1")),
         # the caps need the compact -3 marker channel for exact re-maps
         max_walk_iters=config.max_walk_iters if compact else 0,
         max_left_iters=config.max_left_iters if compact else 0,
@@ -241,34 +294,63 @@ def _make_meta(image, config: AlignerConfig, cuckoo_mask: int,
 
 def from_jax_device_index(dev_np, meta) -> tuple[DeviceIndex, MapMeta]:
     """The reference's numpy DeviceIndex and MapMeta -> the port's, so
-    both engines compute on the same arrays.  Needs the reference's
-    cuckoo seed index and non-overlapping pool (pool_stride = 0); its
-    bitset fields (tx_words, ec_bits) have no counterpart here."""
-    if meta.seed_index != "cuckoo" or meta.pool_stride != 0:
-        raise ValueError("need seed_index='cuckoo' and pool_stride=0, got "
-                         f"{meta.seed_index!r}, {meta.pool_stride}")
-    dev = DeviceIndex(
-        pool_rows=np.asarray(dev_np.pool_rows),
-        node_row=np.asarray(dev_np.node_row),
-        cuckoo=np.asarray(dev_np.cuckoo),
-        cuckoo_vals=np.asarray(dev_np.cuckoo_vals),
-    )
-    port = MapMeta(**{f.name: getattr(meta, f.name) for f in fields(MapMeta)})
-    return dev, port
+    both engines compute on the same arrays.  Reads them duck-typed, as
+    plain attributes.  Takes every seed index, but needs the
+    non-overlapping pool (pool_stride = 0); the reference's bitset fields
+    (tx_words, ec_bits) have no counterpart here."""
+    if meta.seed_index not in SEED_INDEXES or meta.pool_stride != 0:
+        raise ValueError(f"need a seed_index of {SEED_INDEXES} and "
+                         f"pool_stride=0, got {meta.seed_index!r}, "
+                         f"{meta.pool_stride}")
+    dev = DeviceIndex(**{f.name: np.asarray(getattr(dev_np, f.name))
+                         for f in fields(DeviceIndex)})
+    kw = {f.name: getattr(meta, f.name) for f in fields(MapMeta)}
+    kw["mphf"] = MphfMeta.of(meta.mphf)
+    return dev, MapMeta(**kw)
+
+
+def image_from_reference(image) -> IndexImage:
+    """The reference's IndexImage -> the port's, reading its arrays as
+    plain attributes (the arrays are shared, not copied)."""
+    m = image.mphf
+    mphf = Mphf(**{f: getattr(m, f) for f in (
+        "n_keys", "seeds", "masks", "word_offsets", "key_offsets", "bits",
+        "ranks")})
+    kw = {f.name: getattr(image, f.name) for f in fields(IndexImage)}
+    return IndexImage(**dict(kw, mphf=mphf))
 
 
 def _as_tensor(a: np.ndarray, device) -> torch.Tensor:
-    """numpy uint32/int32 array -> int32 tensor (uint32 as bit pattern)."""
+    """numpy uint32/int32 array -> int32 tensor (uint32 as bit pattern).
+    A read-only array (an mmapped index) is shared, not copied, on the
+    CPU: the index tensors are only ever read."""
     a = np.ascontiguousarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.from_numpy(a.astype(np.int32, copy=False)).to(device)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable", UserWarning)
+        t = torch.from_numpy(a.astype(np.int32, copy=False))
+    return t.to(device)
 
 
-def upload(dev: DeviceIndex, device) -> DeviceIndex:
-    """Move a numpy DeviceIndex to `device` as int32 tensors."""
-    return DeviceIndex(**{f.name: _as_tensor(getattr(dev, f.name), device)
-                          for f in fields(DeviceIndex)})
+def upload(dev: DeviceIndex, device, serving: MapMeta | None = None
+           ) -> DeviceIndex:
+    """Move a numpy DeviceIndex to `device` as int32 tensors.
+
+    With `serving` (the meta the index serves with), the arrays its seed
+    index never reads travel as empty dummies, as the reference's
+    `upload_device_index` does: the MPHF and the slot-ordered keys and
+    values in cuckoo and bucket1 mode.  Without it every array is kept,
+    as `batch_stats` needs."""
+    arrays = {f.name: getattr(dev, f.name) for f in fields(DeviceIndex)}
+    if serving is not None and serving.seed_index != "mphf":
+        W = np.asarray(dev.kmer_keys).shape[1]
+        for name in MPHF_ARRAYS:
+            arrays[name] = np.zeros((0, W) if name == "kmer_keys" else 0,
+                                    np.int32)
+    return DeviceIndex(**{n: _as_tensor(a, device)
+                          for n, a in arrays.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +399,42 @@ def cuckoo_lookup(meta: MapMeta, idx: DeviceIndex, words: torch.Tensor):
     return node.to(torch.int32), off.to(torch.int32)
 
 
+def bucket1_lookup(meta: MapMeta, idx: DeviceIndex, words: torch.Tensor):
+    """[..., W] int64 k-mer words -> (node, offset) int32, -1 on miss.
+
+    One bucket, hashed with meta.bucket_seed; the first of its B1_SLOTS
+    slots whose key matches and whose node is not EMPTY wins.  Empty slots
+    hold zero keys, so the node check keeps the all-A k-mer off them."""
+    W = words.shape[-1]
+    keys = _as_i32(words)
+    h = hash_kmer(words, meta.bucket_seed) & meta.cuckoo_mask
+    rows = idx.cuckoo[h]  # [..., B1_SLOTS*(W+2)]
+    node = torch.full(words.shape[:-1], -1, dtype=torch.int32,
+                      device=words.device)
+    off = node.clone()
+    empty = np.uint32(CK_EMPTY).view(np.int32).item()
+    for s in range(B1_SLOTS):
+        base = s * (W + 2)
+        n = rows[..., base + W]
+        hit = ((rows[..., base : base + W] == keys).all(dim=-1)
+               & (n != empty) & (node < 0))
+        node = torch.where(hit, n, node)
+        off = torch.where(hit, rows[..., base + W + 1], off)
+    return node, off
+
+
+def seed_probe(meta: MapMeta, idx: DeviceIndex, words: torch.Tensor):
+    """[..., W] int64 k-mer words -> (node, offset) int32 by the seed
+    index of meta.seed_index."""
+    if meta.seed_index == "bucket1":
+        return bucket1_lookup(meta, idx, words)
+    if meta.seed_index == "mphf":
+        return verified_lookup(words, idx.mphf_bits, idx.mphf_ranks,
+                               meta.mphf, idx.kmer_keys, idx.kmer_node,
+                               idx.kmer_offset)
+    return cuckoo_lookup(meta, idx, words)
+
+
 def next_hit_table(seed_node, seed_off, lens, k: int, P: int):
     """Mask invalid positions, then per stride-3 residue a suffix min
     (flipped cummin) of the valid positions: nh3[b, p] = (q, node@q,
@@ -351,14 +469,14 @@ def seed_tables(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
     reads = unpack_reads(packed, meta.read_len)
     kmers = all_kmers(reads, meta.k)
     if meta.lazy_seeds:
-        n3, o3 = cuckoo_lookup(meta, idx, kmers[:, ::3])
+        n3, o3 = seed_probe(meta, idx, kmers[:, ::3])
         node = torch.full((reads.shape[0], P), -1, dtype=torch.int32,
                           device=reads.device)
         off = node.clone()
         node[:, ::3] = n3
         off[:, ::3] = o3
     else:
-        node, off = cuckoo_lookup(meta, idx, kmers)
+        node, off = seed_probe(meta, idx, kmers)
     return next_hit_table(node, off, lens, meta.k, P)
 
 
@@ -536,7 +654,7 @@ def walk(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
             # a miss steps by 3 while a k-mer still fits
             s = seeking.nonzero(as_tuple=True)[0]
             skp = kpos[s]
-            pn, po = cuckoo_lookup(meta, idx, ctx.kmer_at(ctx.reads[s], skp))
+            pn, po = seed_probe(meta, idx, ctx.kmer_at(ctx.reads[s], skp))
             hit = pn >= 0
             keep = ~hit & (skp + 3 <= lens64[s] - k)
             node2[s] = torch.where(hit, pn.to(torch.int64), node2[s])

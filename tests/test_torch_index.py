@@ -12,7 +12,8 @@ from pseudoaligner_torch.ops import map_kernel as mk
 
 from .torch_helpers import _random_transcripts, build, polyt_transcripts
 
-ARRAYS = ("pool_rows", "node_row", "cuckoo", "cuckoo_vals")
+ARRAYS = ("pool_rows", "node_row", "cuckoo", "cuckoo_vals", "mphf_bits",
+          "mphf_ranks", "kmer_keys", "kmer_node", "kmer_offset")
 
 
 @pytest.fixture(scope="module", params=["k20", "k64_polyT"])
@@ -66,6 +67,6 @@ def test_from_jax_rejects_overlapped_pool():
     assert ref_meta.pool_stride > 0
     with pytest.raises(ValueError):
         mk.from_jax_device_index(ref_dev, ref_meta)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seed_index"):
         mk.device_index_from_image(
-            image, dataclasses.replace(cfg, seed_index="mphf"))
+            image, dataclasses.replace(cfg, seed_index="cuckoo3"))

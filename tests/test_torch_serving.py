@@ -237,10 +237,10 @@ def test_port_runs_without_jax(workload):
         sys.meta_path.insert(0, _NoJax())
         import io
         from pseudoaligner_torch import cli, golden
+        from pseudoaligner_torch.config import AlignerConfig
         from pseudoaligner_torch.models.aligner import Pseudoaligner
-        from pseudoaligner_torch.ops import kernels, map_kernel
-        from pseudoaligner_tpu.config import AlignerConfig
-        from pseudoaligner_tpu.serde import load_index
+        from pseudoaligner_torch.ops import kernels, map_kernel, stats
+        from pseudoaligner_torch.serde import load_index
 
         al = Pseudoaligner(load_index({idx!r}),
                            AlignerConfig(k=20, batch_size=256,
@@ -279,14 +279,9 @@ def test_not_ported_paths_raise(workload):
     image, fq, idx, _ = workload
     with pytest.raises(NotImplementedError):
         port_cli.main(["map", "-i", idx, fq, fq, "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        port_cli.main(["map", "-i", idx, fq, "--seed-index", "mphf",
-                       "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        port_cli.main(["count"])
-    with pytest.raises(NotImplementedError):
-        Pseudoaligner(image, AlignerConfig(k=20, seed_index="mphf"),
-                      device="cpu")
+    for cmd in ("count", "mappability", "idxstats", "inspect"):
+        with pytest.raises(NotImplementedError):
+            port_cli.main([cmd])
     al = Pseudoaligner(image, AlignerConfig(k=20), device="cpu")
     with pytest.raises(NotImplementedError):
         al.emit_fastq_paired(fq, fq, io.BytesIO())
