@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's single-end `map` path once on one NVIDIA GPU,
-under each of its seed indexes, and its `batch_stats`.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU: single-end
+`map` under each of its seed indexes, `batch_stats`, the bit-packed index
+upload, paired-end `map`, single-cell `count`, and the bitset EC path.
 
     python3 chip_smoke.py [--seed 0] [--novel-bases 27000000] [--batches 16]
+                          [--bitset-novel-bases 12000000]
 
 Phases (every number printed is for the card named on the first line):
 
@@ -41,7 +43,31 @@ Phases (every number printed is for the card named on the first line):
    have launched);
 7. recomputes 2,000 records spread over the cuckoo output with the scalar
    golden oracle (pseudoaligner_torch.golden, numpy, independent of
-   batches and kernels) and requires equal bytes.
+   batches and kernels) and requires equal bytes;
+8. the bit-packed upload of the cuckoo tables (which the phase-6 cuckoo
+   CLI's serve init took by the default gate: K5 must have launched there):
+   the unpack kernel (K5) equal, tolerance 0, to its plain version on this
+   index's packed arrays, and both equal to the plain upload's arrays;
+   bytes on the link and upload time, packed against plain, in turns; K5
+   timed as in phase 3;
+9. paired-end `map`: batches x 32,768 pairs by bench.py's synth_pairs
+   recipe (mates are windows of one transcript, a one-SNP middle third,
+   mate 2 of the last third reversed) through the CLI `map -i IDX r1.fq
+   r2.fq --batch-size 65536` (pairs/s, launches), the paired serving loop
+   traced for the device's busy share, and 2,000 sampled pairs recomputed
+   by the golden oracle and the pair rule (equal bytes);
+10. single-cell `count`: batches x 65,536 read pairs by bench.py's
+   synth_count_inputs recipe (400 zipf-skewed cells, 16-base barcodes
+   with 2% one-base errors, 12-base UMIs) through the CLI `count`
+   (pairs/s, launches); on the first 4 batches the batched path's counts
+   must equal the record path's (distinct_cap = 0);
+11. the bitset EC path on a second index of --bitset-novel-bases novel
+   bases (at most 16,384 transcripts, so meta.tx_words > 0): the bitset
+   intersection kernel (K4) equal, tolerance 0, to its plain version on 4
+   batches in the full-output shape and timed; then `count_single_cell`
+   and `map_fastq` through a distinct_cap = 0 aligner, each of which must
+   launch K4, and 2,000 sampled `map_fastq` records equal to the golden
+   oracle's.
 
 Each kernel's bound is the least time the card could take for the work of
 this run's data: the bytes the function must move (inputs it needs read
@@ -123,10 +149,9 @@ def scale_seqs(total_novel_bases: int, seed: int):
     return seqs, names, gene_map
 
 
-def recipe_reads(seqs, n_reads: int, read_len: int, seed: int):
-    """bench.py's read recipe: windows within one transcript; the first
-    third exact, the middle third with one SNP, the last third reversed
-    (not complemented: negative controls)."""
+def _windows(seqs, read_len: int):
+    """(concatenated bases, start of each transcript that holds a read,
+    read start positions in it)."""
     import numpy as np
 
     flat = np.concatenate(seqs)
@@ -137,8 +162,17 @@ def recipe_reads(seqs, n_reads: int, read_len: int, seed: int):
             bases.append(base)
             counts.append(len(s) - read_len + 1)
         base += len(s)
-    bases = np.asarray(bases, dtype=np.int64)
-    counts = np.asarray(counts, dtype=np.int64)
+    return (flat, np.asarray(bases, dtype=np.int64),
+            np.asarray(counts, dtype=np.int64))
+
+
+def recipe_reads(seqs, n_reads: int, read_len: int, seed: int):
+    """bench.py's read recipe: windows within one transcript; the first
+    third exact, the middle third with one SNP, the last third reversed
+    (not complemented: negative controls)."""
+    import numpy as np
+
+    flat, bases, counts = _windows(seqs, read_len)
     rng = np.random.default_rng(seed)
     cum = np.cumsum(counts)
     pick = rng.integers(0, cum[-1], size=n_reads)
@@ -153,6 +187,50 @@ def recipe_reads(seqs, n_reads: int, read_len: int, seed: int):
                         + rng.integers(1, 4, size=third)) % 4
     reads[2 * third:] = reads[2 * third:, ::-1]
     return reads
+
+
+def pair_reads(seqs, n_pairs: int, read_len: int, seed: int):
+    """bench.py's synth_pairs recipe: both mates are windows of the same
+    transcript; the middle third of the pairs has one SNP on each mate,
+    and mate 2 of the last third is reversed.  (mate1, mate2) codes."""
+    import numpy as np
+
+    flat, bases, counts = _windows(seqs, read_len)
+    rng = np.random.default_rng(seed)
+    tx = rng.integers(0, len(bases), size=n_pairs)
+    off1 = rng.integers(0, counts[tx])
+    off2 = rng.integers(0, counts[tx])
+    win = np.arange(read_len)[None, :]
+    r1 = flat[(bases[tx] + off1)[:, None] + win].astype(np.uint8)
+    r2 = flat[(bases[tx] + off2)[:, None] + win].astype(np.uint8)
+    third = n_pairs // 3
+    for r in (r1, r2):
+        pos = rng.integers(0, read_len, size=third)
+        rows = np.arange(third, 2 * third)
+        r[rows, pos] = (r[rows, pos] + rng.integers(1, 4, size=third)) % 4
+    r2[2 * third:] = r2[2 * third:, ::-1]
+    return r1, r2
+
+
+def count_reads(seqs, n_pairs: int, read_len: int, seed: int,
+                n_cells: int = 400, bc_error_rate: float = 0.02):
+    """bench.py's synth_count_inputs recipe: R1 is a 16-base barcode from a
+    pool of n_cells with zipf-skewed abundance (bc_error_rate of them with
+    one base changed) and a 12-base UMI; R2 is cDNA by recipe_reads.
+    (R1, R2) codes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cells = rng.integers(0, 4, size=(n_cells, 16))
+    w = 1.0 / np.arange(1, n_cells + 1)
+    bcs = cells[rng.choice(n_cells, size=n_pairs, p=w / w.sum())]
+    n_err = int(n_pairs * bc_error_rate)
+    rows = rng.choice(n_pairs, size=n_err, replace=False)
+    pos = rng.integers(0, 16, size=n_err)
+    bcs[rows, pos] = (bcs[rows, pos] + rng.integers(1, 4, size=n_err)) % 4
+    umis = rng.integers(0, 4, size=(n_pairs, 12))
+    r1 = np.concatenate([bcs, umis], axis=1).astype(np.uint8)
+    return r1, recipe_reads(seqs, n_pairs, read_len, seed + 1)
 
 
 def write_fasta(path: str, seqs, names, gene_map) -> None:
@@ -409,11 +487,81 @@ def stats_work(meta, idx, packed, lens):
     return packed.numel() * 4 + B * 4 + pb + 24, po + 3 * k * B * P
 
 
+def ecbits_work(meta, idx, res):
+    """K4: each mapped read's first min(n_nodes, max_nodes) node ids and
+    their class ids, each class row the batch needs once, mapped and
+    n_nodes in, B x TW words out; one AND per word of each distinct class
+    of a read."""
+    import torch
+
+    B, M = res.nodes.shape
+    TW = meta.tx_words
+    n = res.n_nodes.long().clamp(max=M)
+    used = ((torch.arange(M, device=n.device)[None, :] < n[:, None])
+            & (res.nodes >= 0) & res.mapped[:, None])
+    ec = idx.node_row[res.nodes.clamp(min=0).long(), 3].long()
+    ec = torch.where(used, ec, -1)
+    srt = ec.sort(dim=1).values
+    distinct = (srt >= 0) & torch.cat(
+        [torch.ones_like(srt[:, :1], dtype=torch.bool),
+         srt[:, 1:] != srt[:, :-1]], dim=1)
+    n_used, n_rows = int(used.sum()), int(ec[used].unique().numel())
+    nbytes = 8 * n_used + 4 * TW * n_rows + 5 * B + 4 * B * TW
+    return nbytes, int(distinct.sum()) * TW
+
+
+def unpack_work(args, cfg):
+    """K5: the packed arrays in, each slot's (node, offset) pair and, with
+    packed keys, its W key words out; a dozen integer operations per slot
+    and three per packed high key byte."""
+    nbytes = sum(a.nbytes for a in args.values())
+    nbytes += 8 * cfg.S + (4 * cfg.W * cfg.S if cfg.pack_keys else 0)
+    hb = cfg.PB - 4 if cfg.pack_keys else 0
+    return nbytes, cfg.S * (12 + 3 * hb)
+
+
+def run_cli(argv, out_path):
+    """The port's CLI with its standard output sent to out_path;
+    (return code, seconds)."""
+    from pseudoaligner_torch import cli
+
+    real_stdout = sys.stdout
+    t = time.time()
+    with open(out_path, "wb") as f:
+        sys.stdout = io.TextIOWrapper(f, write_through=True)
+        try:
+            rc = cli.main(argv)
+        finally:
+            sys.stdout.flush()
+            sys.stdout.detach()
+            sys.stdout = real_stdout
+    return rc, time.time() - t
+
+
+def traced(run):
+    """(wall seconds, device activities) of run() under the profiler."""
+    import torch
+
+    wall = []
+
+    def timed():
+        t0 = time.time()
+        run()
+        torch.cuda.synchronize()
+        wall.append(time.time() - t0)
+
+    events = device_events(timed)
+    return wall[0], events
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--novel-bases", type=int, default=27_000_000)
     ap.add_argument("--batches", type=int, default=16)
+    ap.add_argument("--bitset-novel-bases", type=int, default=12_000_000,
+                    help="novel bases of phase 11's index, whose transcript "
+                         "count must stay within bitset_tx_threshold")
     args = ap.parse_args(argv)
     defaults = vars(args) == vars(ap.parse_args([]))
     t_start = time.time()
@@ -429,15 +577,27 @@ def main(argv=None) -> int:
     import numpy as np
 
     from pseudoaligner_torch import cli
-    from pseudoaligner_torch.golden import golden_oracle, golden_record
+    from pseudoaligner_torch.config import AlignerConfig
+    from pseudoaligner_torch.golden import (
+        golden_oracle,
+        golden_pair_record,
+        golden_record,
+    )
     from pseudoaligner_torch.models.aligner import Pseudoaligner
     from pseudoaligner_torch.ops import kernels
     from pseudoaligner_torch.ops.map_kernel import (
+        device_index_from_image,
+        ec_bitset_intersect,
         pack_reads_host,
+        pack_serving_args,
+        packed_tensors,
         seed_tables,
+        unpack_index,
+        upload,
         walk,
     )
     from pseudoaligner_torch.ops.stats import batch_stats, stats_counts
+    from pseudoaligner_torch.singlecell import count_single_cell
 
     dev = torch.device("cuda", 0)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -475,7 +635,6 @@ def main(argv=None) -> int:
     reads = recipe_reads(seqs, n_reads, READ_LEN, args.seed + 3)
     write_fastq(fq_path, reads)
     say(f"reads: {n_reads} x {READ_LEN} written in {time.time() - t:.1f} s")
-    del seqs
     lens_np = np.full(BATCH, READ_LEN, dtype=np.int32)
     lens = torch.from_numpy(lens_np).to(dev)
     packed = [torch.from_numpy(pack_reads_host(
@@ -555,15 +714,7 @@ def main(argv=None) -> int:
                 " ms per batch; host phases, ms per batch: " + ", ".join(
                     f"{k} {v * 1000 / n_b:.2f}"
                     for k, v in sorted(al.phase_times.items())))
-            wall = []
-
-            def traced_loop():
-                t0 = time.time()
-                al.emit_fastq(fq_path, sink)
-                torch.cuda.synchronize()
-                wall.append(time.time() - t0)
-
-            events = device_events(traced_loop)
+            wall, events = traced(lambda: al.emit_fastq(fq_path, sink))
         per = {"H2D": 0.0, "K1": 0.0, "K2": 0.0, "D2H": 0.0, "other": 0.0}
         for name, s0, e0 in events:
             cat = ("H2D" if name.startswith("Memcpy HtoD") else
@@ -572,10 +723,17 @@ def main(argv=None) -> int:
                    "K2" if "walk_kernel" in name else "other")
             per[cat] += e0 - s0
         busy = busy_us(events) / 1e6
-        say(f"[{mode}] serving loop traced: wall {wall[0]:.4f} s, device "
-            f"busy {busy:.6f} s ({100 * busy / wall[0]:.3f}%, idle "
-            f"{100 - 100 * busy / wall[0]:.3f}%); device ms per batch: " +
+        say(f"[{mode}] serving loop traced: wall {wall:.4f} s, device "
+            f"busy {busy:.6f} s ({100 * busy / wall:.3f}%, idle "
+            f"{100 - 100 * busy / wall:.3f}%); device ms per batch: " +
             ", ".join(f"{k} {v / 1000 / n_b:.4f}" for k, v in per.items()))
+
+    def launch_counts():
+        return {"seed": kernels.seed_tables_cuda.launches,
+                "walk": kernels.walk_cuda.launches,
+                "stats": kernels.stats_cuda.launches,
+                "ec_bits": kernels.ec_bits_cuda.launches,
+                "unpack": kernels.unpack_index_cuda.launches}
 
     # ---- 3. cuckoo: kernels vs plain on the card ----
     cfg, al = serve_init("cuckoo")
@@ -716,25 +874,16 @@ def main(argv=None) -> int:
         out_path = os.path.join(work, f"map_{mode}.out")
         kernels.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        real_stdout = sys.stdout
-        t = time.time()
-        with open(out_path, "wb") as f:
-            sys.stdout = io.TextIOWrapper(f, write_through=True)
-            try:
-                rc = cli.main(["map", "-i", idx_path, fq_path, "--batch-size",
-                               str(BATCH), "--max-read-len", str(READ_LEN),
-                               "--device", "cuda", "--seed-index", mode])
-            finally:
-                sys.stdout.flush()
-                sys.stdout.detach()
-                sys.stdout = real_stdout
-        dt = time.time() - t
-        launches[mode] = {"seed": kernels.seed_tables_cuda.launches,
-                          "walk": kernels.walk_cuda.launches,
-                          "stats": kernels.stats_cuda.launches}
+        rc, dt = run_cli(["map", "-i", idx_path, fq_path, "--batch-size",
+                          str(BATCH), "--max-read-len", str(READ_LEN),
+                          "--device", "cuda", "--seed-index", mode], out_path)
+        launches[mode] = launch_counts()
         if rc != 0:
             raise AssertionError(f"map CLI ({mode}) returned {rc}")
-        if min(launches[mode]["seed"], launches[mode]["walk"]) < 1:
+        # the cuckoo tables pass the default gate of the packed upload
+        need = ("seed", "walk") + (("unpack",) if mode == "cuckoo"
+                                   and defaults else ())
+        if min(launches[mode][k] for k in need) < 1:
             raise AssertionError(f"a kernel never launched on the main path "
                                  f"({mode}): {launches[mode]}")
         with open(out_path, "rb") as f:
@@ -758,7 +907,7 @@ def main(argv=None) -> int:
     t = time.time()
     st = [batch_stats(al.meta, al.dev, pk, lens) for pk in packed]
     dt = time.time() - t
-    launches["stats"] = {"stats": kernels.stats_cuda.launches}
+    launches["stats"] = launch_counts()
     if launches["stats"]["stats"] < 1:
         raise AssertionError("the stats kernel never launched")
     n_pos = sum(s.n_positions for s in st)
@@ -786,6 +935,236 @@ def main(argv=None) -> int:
     say(f"golden oracle: {len(sample)} sampled records byte-identical "
         f"({time.time() - t:.1f} s)")
 
+    # ---- 8. the bit-packed upload of the cuckoo tables (K5) ----
+    cfg = cli.serving_config(20, BATCH, READ_LEN)
+    dev_np, meta = device_index_from_image(image, cfg)
+    t = time.time()
+    pargs, pcfg = pack_serving_args(dev_np, meta)
+    t_pack = time.time() - t
+    ptens = packed_tensors(pargs, dev)
+    k5 = kernels.unpack_index_cuda(ptens, pcfg)
+    p5 = unpack_index(ptens, pcfg)
+    plain = upload(dev_np, dev, serving=meta, pack=False)
+    err["unpack"] = max(max_abs_diff(a, b) for a, b in zip(k5, p5))
+    for a, b in zip(k5, (plain.cuckoo, plain.cuckoo_vals)):
+        if err["unpack"] or max_abs_diff(a, b):
+            raise AssertionError("unpack kernel, plain unpack and plain "
+                                 "upload disagree")
+    torch.cuda.synchronize()
+    link_plain = (np.asarray(dev_np.cuckoo).nbytes
+                  + np.asarray(dev_np.cuckoo_vals).nbytes)
+    link_packed = sum(a.nbytes for a in pargs.values())
+    say(f"[packed upload] unpack kernel == plain unpack == plain upload, "
+        f"tolerance 0, over {pcfg.S} slots (node_bits {pcfg.node_bits}, "
+        f"off_bits {pcfg.off_bits}, keys packed {pcfg.pack_keys}); cuckoo "
+        f"bytes on the link: packed {link_packed}, plain {link_plain} "
+        f"({link_packed / link_plain:.4f}); host pack {t_pack:.3f} s")
+    del k5, p5, plain
+    up_s, up_bytes = {True: [], False: []}, set()
+    for pack in (False, True, True, False):  # in turns
+        torch.cuda.synchronize()
+        t = time.time()
+        up = upload(dev_np, dev, serving=meta, pack=pack)
+        torch.cuda.synchronize()
+        up_s[pack].append(time.time() - t)
+        up_bytes.add(up.nbytes())
+        del up
+    if len(up_bytes) != 1:
+        raise AssertionError(f"packed and plain device bytes {up_bytes}")
+    say(f"[packed upload] upload (host pack, H2D, unpack) in turns plain, "
+        f"packed, packed, plain: packed {up_s[True]} s, plain {up_s[False]}"
+        f" s")
+    bounds["unpack"] = bound([unpack_work(pargs, pcfg)])
+    time_pair("unpack", lambda i: kernels.unpack_index_cuda(ptens, pcfg),
+              n_b, "unpack_index_kernel", 1)
+    time_pair("unpack_plain", lambda i: unpack_index(ptens, pcfg), 2, None,
+              1)
+    del ptens, pargs, dev_np
+
+    # ---- 9. paired-end map ----
+    n_pairs = n_reads // 2
+    p_paths = [os.path.join(work, f"pairs_{m}.fq") for m in (1, 2)]
+    t = time.time()
+    mates = pair_reads(seqs, n_pairs, READ_LEN, args.seed + 5)
+    for path, m in zip(p_paths, mates):
+        write_fastq(path, m)
+    say(f"pairs: {n_pairs} x 2 x {READ_LEN} written in {time.time() - t:.1f}"
+        " s")
+    kernels.reset_launch_counts()
+    pout = os.path.join(work, "map_paired.out")
+    rc, dt = run_cli(["map", "-i", idx_path, *p_paths, "--batch-size",
+                      str(BATCH), "--max-read-len", str(READ_LEN),
+                      "--device", "cuda"], pout)
+    launches["paired"] = launch_counts()
+    if rc != 0 or min(launches["paired"][k] for k in ("seed", "walk")) < 1:
+        raise AssertionError(f"paired map CLI returned {rc}, launches "
+                             f"{launches['paired']}")
+    with open(pout, "rb") as f:
+        plines = f.read().splitlines()
+    if len(plines) != n_pairs:
+        raise AssertionError(f"{len(plines)} paired records for {n_pairs}")
+    say(f"[paired] map CLI end to end: {dt:.2f} s, {n_pairs / dt:.0f} "
+        f"pairs/s; launches {launches['paired']}")
+    al = Pseudoaligner(image, cfg, device="cuda")
+    with open(os.devnull, "wb") as sink:
+        al.emit_fastq_paired(*p_paths, sink)  # warm the host caches
+        t = time.time()
+        al.emit_fastq_paired(*p_paths, sink)
+        dt = time.time() - t
+        wall, events = traced(lambda: al.emit_fastq_paired(*p_paths, sink))
+        busy = busy_us(events) / 1e6
+    al.close()
+    del al
+    say(f"[paired] serving loop (no set-up): {n_pairs / dt:.0f} pairs/s, "
+        f"{dt * 1000 / n_b:.2f} ms per 32,768-pair batch; traced: wall "
+        f"{wall:.4f} s, device busy {busy:.6f} s ({100 * busy / wall:.3f}%)")
+    t = time.time()
+    psample = np.unique(np.linspace(0, n_pairs - 1, N_GOLDEN).astype(
+        np.int64))
+    for i in psample:
+        want = golden_pair_record(oracle, f"r{i}", mates[0][i], mates[1][i],
+                                  cfg).encode()
+        if plines[i] != want:
+            raise AssertionError(f"pair {i}: {plines[i]!r} != {want!r}")
+    say(f"[paired] golden oracle: {len(psample)} sampled pairs "
+        f"byte-identical ({time.time() - t:.1f} s)")
+    del mates, plines
+
+    # ---- 10. single-cell count ----
+    c_paths = [os.path.join(work, f"count_{m}.fq") for m in (1, 2)]
+    c4_paths = [os.path.join(work, f"count4_{m}.fq") for m in (1, 2)]
+    t = time.time()
+    creads = count_reads(seqs, n_reads, READ_LEN, args.seed + 7)
+    for path, path4, r in zip(c_paths, c4_paths, creads):
+        write_fastq(path, r)
+        write_fastq(path4, r[:MODE_BATCHES * BATCH])
+    del creads, seqs
+    say(f"count inputs: {n_reads} R1/R2 pairs written in "
+        f"{time.time() - t:.1f} s")
+    kernels.reset_launch_counts()
+    cdir = os.path.join(work, "count_out")
+    rc, dt = run_cli(["count", "-i", idx_path, *c_paths, "-o", cdir,
+                      "--batch-size", str(BATCH), "--max-read-len",
+                      str(READ_LEN), "--device", "cuda"],
+                     os.path.join(work, "count.out"))
+    launches["count"] = launch_counts()
+    if rc != 0 or min(launches["count"][k] for k in ("seed", "walk")) < 1:
+        raise AssertionError(f"count CLI returned {rc}, launches "
+                             f"{launches['count']}")
+    with open(os.path.join(cdir, "matrix.mtx")) as f:
+        mtx_head = f.read(4096).splitlines()[2]
+    say(f"[count] count CLI end to end: {dt:.2f} s, {n_reads / dt:.0f} "
+        f"pairs/s; launches {launches['count']}; matrix cells x classes x "
+        f"entries {mtx_head}")
+    summary = {}
+    for path, ccfg in (("batched", cfg), ("records", AlignerConfig(
+            k=20, batch_size=BATCH, max_read_len=READ_LEN, distinct_cap=0))):
+        al = Pseudoaligner(image, ccfg, device="cuda")
+        t = time.time()
+        c = count_single_cell(al, *c4_paths)
+        dt = time.time() - t
+        al.close()
+        summary[path] = (c.cells, c.classes, c.entry_counts(),
+                         c.entry_counts("directional"), c.n_reads,
+                         c.n_mapped, c.n_corrected)
+        say(f"[count] {path} path over {MODE_BATCHES} batches: {dt:.2f} s; "
+            f"{len(c.cells)} cells, {len(c.classes)} classes, {c.n_mapped} "
+            f"of {c.n_reads} mapped, {c.n_corrected} barcodes folded")
+    if summary["batched"] != summary["records"]:
+        raise AssertionError("count: batched and record paths disagree")
+    say("[count] batched == records: cells, classes, both entry_counts")
+
+    # ---- 11. the bitset EC path (K4) on a second index ----
+    fa12 = os.path.join(work, "transcripts_bitset.fa")
+    idx12_path = os.path.join(work, "index_bitset.bin")
+    fq12 = os.path.join(work, "reads_bitset.fq")
+    b12_paths = [os.path.join(work, f"count_bitset_{m}.fq") for m in (1, 2)]
+    t = time.time()
+    seqs12, names12, gmap12 = scale_seqs(args.bitset_novel_bases, args.seed)
+    write_fasta(fa12, seqs12, names12, gmap12)
+    if cli.main(["index", "-i", idx12_path, fa12, "-n",
+                 str(os.cpu_count())]) != 0:
+        raise AssertionError("index CLI failed (bitset index)")
+    image12 = cli.open_index(idx12_path)
+    n12 = MODE_BATCHES * BATCH
+    reads12 = recipe_reads(seqs12, n12, READ_LEN, args.seed + 9)
+    write_fastq(fq12, reads12)
+    for path, r in zip(b12_paths, count_reads(seqs12, n12, READ_LEN,
+                                              args.seed + 11)):
+        write_fastq(path, r)
+    del seqs12
+    cfg12 = AlignerConfig(k=20, batch_size=BATCH, max_read_len=READ_LEN,
+                          distinct_cap=0)
+    al = Pseudoaligner(image12, cfg12, device="cuda")
+    meta12, idx12 = al.meta, al.dev
+    n_tx = len(image12.tx_names)
+    if meta12.tx_words != (n_tx + 31) // 32 or meta12.tx_words < 1:
+        raise AssertionError(f"{n_tx} transcripts, tx_words "
+                             f"{meta12.tx_words}: the bitset path is off")
+    say(f"[bitset] index: {n_tx} transcripts, {image12.n_ecs} classes, "
+        f"{image12.mphf.n_keys} k-mers, TW {meta12.tx_words}, ec_bits "
+        f"{idx12.ec_bits.numel() * 4} bytes; built with its reads in "
+        f"{time.time() - t:.1f} s")
+    packed12 = [torch.from_numpy(pack_reads_host(
+        reads12[b * BATCH:(b + 1) * BATCH]).view(np.int32)).to(dev)
+        for b in range(MODE_BATCHES)]
+    walks = []
+    err["ec_bits"] = 0
+    for pk in packed12:
+        nh3 = kernels.seed_tables_cuda(meta12, idx12, pk, lens)
+        w = kernels.walk_cuda(meta12, idx12, pk, lens, nh3)
+        err["ec_bits"] = max(err["ec_bits"], max_abs_diff(
+            kernels.ec_bits_cuda(meta12, idx12, w.nodes, w.n_nodes,
+                                 w.mapped),
+            ec_bitset_intersect(meta12, idx12, w.nodes, w.n_nodes,
+                                w.mapped)))
+        if err["ec_bits"]:
+            raise AssertionError(f"bitset kernel differs by up to "
+                                 f"{err['ec_bits']}")
+        walks.append(w)
+    torch.cuda.synchronize()
+    say(f"[bitset] bitset kernel == plain, tolerance 0, on {MODE_BATCHES} "
+        f"batches of {BATCH} reads (nodes {tuple(walks[0].nodes.shape)})")
+    bounds["ec_bits"] = bound([ecbits_work(meta12, idx12, w) for w in walks])
+    time_pair("ec_bits", lambda i: kernels.ec_bits_cuda(
+        meta12, idx12, walks[i].nodes, walks[i].n_nodes, walks[i].mapped),
+        n_b, "ec_bits_kernel", MODE_BATCHES)
+    time_pair("ec_bits_plain", lambda i: ec_bitset_intersect(
+        meta12, idx12, walks[i].nodes, walks[i].n_nodes, walks[i].mapped),
+        2, None, MODE_BATCHES)
+    del walks, packed12
+    kernels.reset_launch_counts()
+    t = time.time()
+    c12 = count_single_cell(al, *b12_paths)
+    dt = time.time() - t
+    on_count = launch_counts()
+    kernels.reset_launch_counts()
+    t2 = time.time()
+    recs = [r.format_reference_style().encode() for r in al.map_fastq(fq12)]
+    dt2 = time.time() - t2
+    on_map = launch_counts()
+    al.close()
+    del al
+    launches["bitset"] = {k: on_count[k] + on_map[k] for k in on_count}
+    if min(on_count["ec_bits"], on_map["ec_bits"]) < 1 or len(recs) != n12:
+        raise AssertionError(f"bitset record paths: launches {on_count}, "
+                             f"{on_map}; {len(recs)} records of {n12}")
+    say(f"[bitset] count_single_cell (record path) over {n12} pairs: "
+        f"{dt:.2f} s, {n12 / dt:.0f} pairs/s, {len(c12.cells)} cells, "
+        f"{len(c12.classes)} classes; launches {on_count}")
+    say(f"[bitset] map_fastq (record path) over {n12} reads: {dt2:.2f} s, "
+        f"{n12 / dt2:.0f} reads/s; launches {on_map}")
+    oracle12 = golden_oracle(image12)
+    t = time.time()
+    sample12 = np.unique(np.linspace(0, n12 - 1, N_GOLDEN).astype(np.int64))
+    for i in sample12:
+        want = golden_record(oracle12, f"r{i}", reads12[i], cfg12).encode()
+        if recs[i] != want:
+            raise AssertionError(f"bitset record {i}: {recs[i]!r} != "
+                                 f"{want!r}")
+    say(f"[bitset] golden oracle: {len(sample12)} sampled map_fastq records "
+        f"byte-identical ({time.time() - t:.1f} s)")
+
     def entry(name, key, source, replaces, mode, which):
         b_ms, b_by = bounds[key]
         return {"name": name, "route": "cuda",
@@ -810,6 +1189,10 @@ def main(argv=None) -> int:
               "ops/map_kernel.py:719", "mphf", "walk"),
         entry("stats", "stats", "stats.cu", "ops/stats.py:39", "stats",
               "stats"),
+        entry("ec_bits", "ec_bits", "ecbits.cu", "ops/map_kernel.py:1180",
+              "bitset", "ec_bits"),
+        entry("unpack_index", "unpack", "unpack.cu",
+              "ops/map_kernel.py:1504", "cuckoo", "unpack"),
     ]}
     say(f"total {time.time() - t_start:.1f} s")
     say(json.dumps(kernels_line))

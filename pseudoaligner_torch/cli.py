@@ -1,15 +1,19 @@
-"""Command-line interface of the PyTorch port: `index` and single-end `map`.
+"""Command-line interface of the PyTorch port: `index`, `map` (single-end
+and paired-end) and `count`.
 
-Same flags and stdout as `pseudoaligner_tpu.cli` for these two commands
-(`map` writes one record per read in the reference's debug format
-`(flag, "read_id", [eq, class], coverage)`), plus `--device {cuda,cpu}`.
-`map --seed-index` takes all three seed indexes (cuckoo, bucket1, mphf).
-Paired-end `map`, `count`, `mappability`, `idxstats` and `inspect` are not
+Same flags, stdout and output files as `pseudoaligner_tpu.cli` for these
+commands (`map` writes one record per read, or per pair, in the
+reference's debug format `(flag, "read_id", [eq, class], coverage)`;
+`count` writes barcodes.tsv, ec.tsv and matrix.mtx), plus
+`--device {cuda,cpu}`.  `map --seed-index` takes all three seed indexes
+(cuckoo, bucket1, mphf).  `mappability`, `idxstats` and `inspect` are not
 ported yet and raise NotImplementedError.
 
     python -m pseudoaligner_torch index -i IDX transcripts.fa
     python -m pseudoaligner_torch map -i IDX reads.fq --device cuda > out
+    python -m pseudoaligner_torch map -i IDX r1.fq r2.fq > pairs.out
     python -m pseudoaligner_torch map -i IDX reads.fq --seed-index mphf
+    python -m pseudoaligner_torch count -i IDX R1.fq R2.fq -o DIR
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from .config import AlignerConfig
 
 log = logging.getLogger("pseudoaligner_torch")
 
-NOT_PORTED = ("count", "mappability", "idxstats", "inspect")
+NOT_PORTED = ("mappability", "idxstats", "inspect")
 USAGE_KMER_SUPPORTED = (20, 64)
 
 
@@ -102,6 +106,11 @@ def _build_parser() -> argparse.ArgumentParser:
                    version=f"pseudoaligner_torch {__version__}")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def device_flag(sp):
+        sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                        help="cuda: the CUDA kernels; cpu: the plain "
+                             "PyTorch passes [default: cuda]")
+
     def common(sp):
         sp.add_argument("-k", "--kmer-size", type=int, default=20,
                         help="Kmer size to use - only 20 or 64 currently "
@@ -118,7 +127,7 @@ def _build_parser() -> argparse.ArgumentParser:
     common(sp)
     sp.add_argument("reads_fastq")
     sp.add_argument("reads_fastq2", nargs="?", default=None,
-                    help="mate FASTQ (paired-end: not ported yet)")
+                    help="optional mate FASTQ — paired-end EC intersection")
     sp.add_argument("--batch-size", type=int, default=32768)
     sp.add_argument("--max-read-len", type=int, default=160)
     sp.add_argument("-o", "--outdir", default=None)
@@ -136,9 +145,37 @@ def _build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--progress-file", default=None,
                     help="write the running emitted-read count here after "
                          "every batch (for restartable streaming)")
-    sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                    help="cuda: the CUDA kernels; cpu: the plain PyTorch "
-                         "passes [default: cuda]")
+    device_flag(sp)
+
+    sp = sub.add_parser(
+        "count",
+        help="10x single-cell counting: R1 barcode/UMI + R2 cDNA -> "
+             "per-cell TCC matrix (alevin-style)",
+    )
+    common(sp)
+    sp.add_argument("r1_fastq")
+    sp.add_argument("r2_fastq")
+    sp.add_argument("-o", "--outdir", default=None)
+    sp.add_argument("--bc-len", type=int, default=16)
+    sp.add_argument("--umi-len", type=int, default=12)
+    sp.add_argument("--whitelist", default=None,
+                    help="known-barcode list (one per line, .gz ok): exact "
+                         "matches accepted, unique 1-Hamming corrections "
+                         "applied, others dropped")
+    sp.add_argument("--umi-dedup", choices=("exact", "directional"),
+                    default="exact",
+                    help="molecule counting: exact distinct UMIs, or "
+                         "UMI-tools directional clustering")
+    sp.add_argument("--no-bc-correct", action="store_true",
+                    help="without a whitelist, skip the knee-call + "
+                         "1-Hamming barcode folding (take barcodes at "
+                         "face value)")
+    sp.add_argument("--call-cells", action="store_true",
+                    help="knee-point cell calling: also write cells.tsv "
+                         "with the called barcodes (rank order)")
+    sp.add_argument("--batch-size", type=int, default=32768)
+    sp.add_argument("--max-read-len", type=int, default=160)
+    device_flag(sp)
     for name in NOT_PORTED:
         sub.add_parser(name, help="not ported yet")
     return p
@@ -180,6 +217,7 @@ def cmd_index(args) -> int:
 def _write_progress(path: str, n: int) -> None:
     """Crash-safe resume count: the records it counts are flushed first,
     then the count is replaced atomically."""
+    sys.stdout.flush()
     sys.stdout.buffer.flush()
     tmp = path + ".tmp"
     with open(tmp, "w") as pf:
@@ -190,12 +228,13 @@ def _write_progress(path: str, n: int) -> None:
 def cmd_map(args, outdir: str) -> int:
     from .models.aligner import Pseudoaligner
 
-    if args.reads_fastq2:
-        raise NotImplementedError("paired-end map is not ported yet")
     log.info("Reading index from disk")
     image = open_index(args.index)
     if image.k != args.kmer_size:
         print(f"Index was built with k={image.k}, not k={args.kmer_size}")
+        return 1
+    if args.reads_fastq2 and args.skip_reads:
+        print("--skip-reads is not supported in paired mode")
         return 1
     log.info("Mapping reads from fastq on %s", args.device)
     aligner = Pseudoaligner(
@@ -207,26 +246,110 @@ def cmd_map(args, outdir: str) -> int:
         from .tcc import TccCounter
 
         tcc = TccCounter()
-
-    def progress(n):
-        if args.progress_file:
-            _write_progress(args.progress_file, args.skip_reads + n)
-
     try:
-        n_reads, n_flagged = aligner.emit_fastq(
-            args.reads_fastq, sys.stdout.buffer, skip_reads=args.skip_reads,
-            tcc=tcc, progress_cb=progress, ticker=make_ticker(),
-        )
-        sys.stdout.buffer.flush()
+        if args.reads_fastq2 and tcc is None:
+            # paired serving fast path: native signature-indirect emitter,
+            # fragment ECs intersected per distinct pair group in C++
+            n_pairs = aligner.emit_fastq_paired(
+                args.reads_fastq, args.reads_fastq2, sys.stdout.buffer,
+                progress_cb=(
+                    (lambda n: _write_progress(args.progress_file, n))
+                    if args.progress_file else None),
+                ticker=make_ticker(),
+            )
+            sys.stdout.buffer.flush()
+            sys.stderr.write("\n")
+            log.info("Done Mapping Reads (%d pairs)", n_pairs)
+            return 0
+        if args.reads_fastq2:
+            _write_records(aligner.map_fastq_paired(
+                args.reads_fastq, args.reads_fastq2), args, tcc)
+        else:
+            def progress(n):
+                if args.progress_file:
+                    _write_progress(args.progress_file, args.skip_reads + n)
+
+            n_reads, n_flagged = aligner.emit_fastq(
+                args.reads_fastq, sys.stdout.buffer,
+                skip_reads=args.skip_reads, tcc=tcc, progress_cb=progress,
+                ticker=make_ticker(),
+            )
+            sys.stdout.buffer.flush()
+            sys.stderr.write("\n")
+            log.info("Done Mapping Reads (%d reads, %d flagged)", n_reads,
+                     n_flagged)
     finally:
         aligner.close()
-    sys.stderr.write("\n")
     if tcc is not None:
         ec_path, tsv_path = tcc.write(outdir)
         log.info("TCC written: %s, %s (%d classes, %d/%d reads mapped)",
                  ec_path, tsv_path, len(tcc.counts), tcc.n_mapped,
                  tcc.n_reads)
-    log.info("Done Mapping Reads (%d reads, %d flagged)", n_reads, n_flagged)
+    return 0
+
+
+def _write_records(records, args, tcc) -> None:
+    """The record path (paired `map --tcc`): one record per line, the TCC
+    counts, the progress file every batch_size records and at the end, and
+    the reference's stderr ticker."""
+    read_counter = mapped_read_counter = 0
+    ticker = make_ticker()
+    emitted = args.skip_reads
+    progress_every = max(1, args.batch_size)
+    for rec in records:
+        sys.stdout.write(rec.format_reference_style() + "\n")
+        if tcc is not None:
+            tcc.add(rec.eq_class, mapped=rec.coverage > 0)
+        emitted += 1
+        if args.progress_file and emitted % progress_every == 0:
+            _write_progress(args.progress_file, emitted)
+        if rec.flag:
+            mapped_read_counter += 1
+        read_counter += 1
+        ticker(read_counter, mapped_read_counter)
+    if args.progress_file:
+        _write_progress(args.progress_file, emitted)
+    sys.stdout.flush()
+    sys.stderr.write("\n")
+    log.info("Done Mapping Reads")
+
+
+def cmd_count(args, outdir: str) -> int:
+    from .models.aligner import Pseudoaligner
+    from .singlecell import Chemistry, Whitelist, count_single_cell
+
+    log.info("Reading index from disk")
+    image = open_index(args.index)
+    if image.k != args.kmer_size:
+        print(f"Index was built with k={image.k}, not k={args.kmer_size}")
+        return 1
+    aligner = Pseudoaligner(
+        image, serving_config(image.k, args.batch_size, args.max_read_len),
+        device=args.device)
+    chem = Chemistry(bc_len=args.bc_len, umi_len=args.umi_len)
+    wl = Whitelist.load(args.whitelist, args.bc_len) if args.whitelist else None
+    try:
+        counts = count_single_cell(
+            aligner, args.r1_fastq, args.r2_fastq, chem, whitelist=wl,
+            bc_correct=not args.no_bc_correct, umi_dedup=args.umi_dedup,
+        )
+    finally:
+        aligner.close()
+    counts.write(outdir, umi_dedup=args.umi_dedup)
+    if args.call_cells:
+        called = counts.call_cells(args.umi_dedup)
+        with open(os.path.join(outdir, "cells.tsv"), "w") as f:
+            for bc in called:
+                f.write(bc + "\n")
+        log.info("cell calling: %d of %d barcodes called", len(called),
+                 len(counts.cells))
+    log.info(
+        "count: %d reads, %d mapped, %d cells, %d classes, %d bad R1, "
+        "%d corrected, %d dropped barcodes",
+        counts.n_reads, counts.n_mapped, len(counts.cells),
+        len(counts.classes), counts.n_bad_r1, counts.n_corrected,
+        counts.n_bad_barcode,
+    )
     return 0
 
 
@@ -245,6 +368,8 @@ def main(argv=None) -> int:
         return 0
     if args.cmd == "index":
         return cmd_index(args)
+    if args.cmd == "count":
+        return cmd_count(args, outdir)
     return cmd_map(args, outdir)
 
 

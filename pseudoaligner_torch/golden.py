@@ -298,3 +298,26 @@ def golden_record(oracle: GoldenAligner, read_id: str, codes: np.ndarray,
     eq, cov = ([], 0) if r is None else (r[0], r[1])
     flag = cov >= config.read_coverage_threshold and not eq
     return ReadRecord(flag, read_id, eq, cov).format_reference_style()
+
+
+def golden_pair_record(oracle: GoldenAligner, read_id: str, codes1,
+                       codes2, config) -> str:
+    """The line paired `map` prints for one pair, by the oracle: each mate
+    mapped alone, their classes intersected when both have coverage, else
+    the covered mate's class; coverage summed (the rule of
+    `Pseudoaligner.map_fastq_paired`)."""
+    from .models.aligner import ReadRecord
+
+    mates = []
+    for codes in (codes1, codes2):
+        r = oracle.map_read_with_mismatch(
+            np.asarray(codes, dtype=np.uint8), config.allowed_mismatches)
+        mates.append(([], 0) if r is None else (list(r[0]), r[1]))
+    (eq1, cov1), (eq2, cov2) = mates
+    if cov1 and cov2:
+        eq = intersect(eq1, eq2)
+    else:
+        eq = eq1 if cov1 else eq2 if cov2 else []
+    cov = cov1 + cov2
+    flag = cov >= config.read_coverage_threshold and not eq
+    return ReadRecord(flag, read_id, eq, cov).format_reference_style()

@@ -1,4 +1,4 @@
-"""The Pseudoaligner serving surface on PyTorch (single-end).
+"""The Pseudoaligner serving surface on PyTorch.
 
 Port of `pseudoaligner_tpu/models/aligner.py`: the index lives on a torch
 device, each batch is packed on the host, copied in, mapped by
@@ -7,11 +7,13 @@ the CPU), and its compact outputs come back through pinned host buffers
 while the host renders earlier batches.  Records are byte-identical to the
 reference's.
 
-The host-side NumPy helpers and the emit, re-map and long-read merge
-methods are copied from the reference unchanged; only the device-touching
-parts are rewritten.  All three seed indexes (cuckoo, bucket1, mphf)
-serve.  Paired-end mapping, single-cell counting and the bitset EC path
-are not ported yet and raise NotImplementedError.
+The host-side NumPy helpers and the emit, paired-end, re-map and long-read
+merge methods are copied from the reference unchanged; only the
+device-touching parts are rewritten.  All three seed indexes (cuckoo,
+bucket1, mphf) serve.  The full-output record path reads the device's
+bitset EC intersection on transcriptomes of at most
+`config.bitset_tx_threshold` transcripts and intersects class lists on
+the host above it.
 """
 
 from __future__ import annotations
@@ -59,6 +61,16 @@ def _csr_rows(flat: np.ndarray, start: np.ndarray, idxs: np.ndarray):
     pos = np.arange(total, dtype=np.int64)
     pos += np.repeat(start[idxs] - offs[:-1], lens)
     return flat[pos], offs
+
+
+def _fill_rows(dst_flat, dst_start, row_idxs, src_flat, src_offs):
+    """Write src CSR rows into dst rows `row_idxs` (orders aligned)."""
+    if len(row_idxs) == 0 or int(src_offs[-1]) == 0:
+        return
+    lens = np.diff(src_offs)
+    pos = np.arange(int(src_offs[-1]), dtype=np.int64)
+    pos += np.repeat(dst_start[row_idxs] - src_offs[:-1], lens)
+    dst_flat[pos] = src_flat
 
 
 def _group_by_packed(mat: np.ndarray, packed: np.ndarray):
@@ -368,6 +380,11 @@ class Pseudoaligner:
     # host post-processing
     # ------------------------------------------------------------------
 
+    def _ec_from_bits(self, bits_row: np.ndarray) -> list[int]:
+        by = np.ascontiguousarray(bits_row).view(np.uint8)
+        unpacked = np.unpackbits(by, bitorder="little")[: self.image.n_tx]
+        return np.nonzero(unpacked)[0].tolist()
+
     def _ec_from_nodes(self, nodes: np.ndarray) -> list[int]:
         """Host CSR intersection — set-equivalent to
         src/pseudoaligner.rs:323-356."""
@@ -442,14 +459,20 @@ class Pseudoaligner:
                 out.append(ReadRecord(c >= thresh and not eq, rid, eq, c))
             return out
 
-        nodes = _host(result.nodes)
-        n_nodes = _host(result.n_nodes)
+        if self.meta.tx_words > 0:
+            bits = _host(result.ec_bits)
+        else:
+            nodes = _host(result.nodes)
+            n_nodes = _host(result.n_nodes)
         out = []
         for i, rid in enumerate(batch.ids):
             if not mapped[i]:
                 out.append(ReadRecord(False, rid, [], 0))
                 continue
-            eq = self._ec_from_nodes(nodes[i, : n_nodes[i]])
+            if self.meta.tx_words > 0:
+                eq = self._ec_from_bits(bits[i])
+            else:
+                eq = self._ec_from_nodes(nodes[i, : n_nodes[i]])
             c = int(cov[i])
             out.append(ReadRecord(c >= thresh and len(eq) == 0, rid, eq, c))
         return out
@@ -720,12 +743,6 @@ class Pseudoaligner:
             progress_cb(n_reads)
         return n_reads, n_flagged
 
-    def emit_fastq_paired(self, *args, **kwargs):
-        raise NotImplementedError("paired-end mapping is not ported yet")
-
-    def map_fastq_paired(self, *args, **kwargs):
-        raise NotImplementedError("paired-end mapping is not ported yet")
-
     def _host_mapper(self):
         """Native scalar mapper (bit-exact with the golden oracle), lazily
         constructed; None when the toolchain is unavailable."""
@@ -784,7 +801,7 @@ class Pseudoaligner:
             # uncapped and exact: the node buffer is decoupled from the
             # serving meta's (which may be as small as the caps allow)
             self._remap_meta = dataclasses.replace(
-                base_meta, distinct_cap=0, max_walk_iters=0,
+                base_meta, distinct_cap=0, tx_words=0, max_walk_iters=0,
                 max_left_iters=0,
                 max_nodes=max(base_meta.max_nodes, 2 * base_meta.read_len),
             )
@@ -964,3 +981,377 @@ class Pseudoaligner:
         flag = (cov >= self.config.read_coverage_threshold
                 and len(rec.eq_class) == 0)
         return ReadRecord(flag, rec.read_id, rec.eq_class, cov)
+
+    def emit_fastq_paired(self, path1: str, path2: str, out,
+                          progress_cb=None, ticker=None) -> int:
+        """Paired-end serving fast path: BOTH mates ride one device batch
+        (mate1 in rows [0, h), mate2 in [h, 2h), h = batch_size // 2) —
+        one dispatch, one transfer, one shared signature table and one
+        overflow re-map per batch pair instead of two of each.  Per-read
+        records are rendered by the native signature-indirect emitter
+        with fragment ECs intersected once per distinct (case, sig, sig)
+        group in C++ (pa_intersect_pairs).  Record-identical to
+        map_fastq_paired; returns the read count."""
+        if self.meta.distinct_cap == 0:
+            # full-debug-output mode has no compact signatures: fall back
+            # to the record path instead of an IndexError on the
+            # zero-width ec_distinct (emit_fastq and the CLI gate the
+            # same way)
+            n = nf = 0
+            for rec in self.map_fastq_paired(path1, path2):
+                out.write(rec.format_reference_style().encode() + b"\n")
+                n += 1
+                nf += rec.flag
+                if ticker is not None:
+                    ticker(n, nf)
+                if progress_cb is not None:
+                    progress_cb(n)
+            self._paired_emitted = n
+            return n
+        bs, L = self.config.batch_size, self.config.max_read_len
+        h = max(1, bs // 2)
+        r1 = FastqReader(path1, h, L)
+        r2 = FastqReader(path2, h, L)
+        self._paired_emitted = 0
+        it1, it2 = iter(r1), iter(r2)
+
+        # depth-D deferral on both waits (pipeline.py): the compact-output
+        # fetch and the re-map wait run pipeline_depth combined batches late
+        def prepare(item, _nxt):
+            res, comb, bb1, n1 = item
+            return (self.emit_prepare(res, comb, defer_group=True),
+                    bb1, n1)
+
+        def render(st):
+            grouped = self.emit_prepare_group(st[0])
+            return self.emit_finish_paired(grouped, st[1], st[2]), st[2]
+
+        n_true = 0
+
+        def finish(data_n):
+            # the durable count advances here, after the ordered write —
+            # on the render thread it would run ahead of what is flushed
+            # (crash-safe progress contract)
+            nonlocal n_true
+            data, n1 = data_n
+            out.write(data)
+            self._paired_emitted += n1
+            if progress_cb is not None:
+                progress_cb(self._paired_emitted)
+            if ticker is not None:
+                n_true += int(data.startswith(b"(true")) + int(
+                    data.count(b"\n(true")
+                )
+                ticker(self._paired_emitted, n_true)
+
+        pipe = DepthPipeline(self.config.pipeline_depth, prepare, finish,
+                             render=render)
+
+        def _pair_gen():
+            while True:
+                a = next(it1, None)
+                b = next(it2, None)
+                yield (a, b)
+                if a is None and b is None:
+                    return
+
+        pairs = prefetch_iter(_pair_gen())
+        try:
+            return self._emit_paired_loop(pairs, pipe, h, r1, r2)
+        except BaseException:
+            pipe.abort()  # drop queued work; no orphan render tasks
+            raise
+        finally:
+            pairs.close()
+
+    def _emit_paired_loop(self, pairs, pipe, h, rdr1=None, rdr2=None):
+        def _raw_ids(b):
+            """(concat bytes, [<=h+1] offsets) padded to h rows so the
+            combined batch always spans 2h rows (tail batches)."""
+            if getattr(b, "_ids", None) is None and b.ids_concat is not None:
+                concat, o = b.ids_concat, b.id_offs
+            else:
+                enc = [s.encode() for s in b.ids]
+                o = np.zeros(len(enc) + 1, np.int64)
+                np.cumsum([len(x) for x in enc], out=o[1:])
+                concat = b"".join(enc)
+            if len(o) - 1 < h:
+                o = np.concatenate(
+                    [o, np.full(h - (len(o) - 1), o[-1], np.int64)]
+                )
+            return concat, o
+
+        while True:
+            _t = time.time()
+            b1, b2 = next(pairs)
+            self._tick("pread", _t)
+            # whole-batch mismatches must error too (zip would silently
+            # drop the longer file's tail)
+            if (b1 is None) != (b2 is None) or (
+                b1 is not None and b1.n_reads != b2.n_reads
+            ):
+                # a short mate may be a stashed gz corruption error
+                # (deliver-then-error) — attribute it, don't report a
+                # misleading pairing mismatch
+                for rdr in (rdr1, rdr2):
+                    err = (rdr.pending_error()
+                           if rdr is not None else None)
+                    if err is not None:
+                        raise err
+                raise ValueError("paired FASTQs have different read counts")
+            if b1 is not None:
+                _t = time.time()
+                codes = np.concatenate([b1.codes, b2.codes], axis=0)
+                lens = np.concatenate([b1.lens, b2.lens])
+                # record ids come from b1 (emit_finish_paired) and the
+                # remap path reads only codes/lens: the combined batch
+                # needs just its row count, so the ids are not joined
+                _, o1 = _raw_ids(b1)
+                _, o2 = _raw_ids(b2)
+                combined = ReadBatch(
+                    codes=codes, lens=lens, ids_concat=b"",
+                    id_offs=np.concatenate([o1, o2[1:] + o1[-1]]),
+                )
+                self._tick("pcombine", _t)
+                fut = self.map_batch_device(codes, lens)
+            if b1 is None:
+                break
+            pipe.push((fut, combined, b1, b1.n_reads))
+        pipe.close()
+        return self._paired_emitted
+
+    def emit_finish_paired(self, st, b1, n1) -> bytes:
+        """Phase 2 for one paired batch (semantics of _paired_rows:
+        both mates mapped -> EC intersection, one mapped -> its set,
+        coverage summed, ids from R1).  Both mates rode ONE device batch:
+        pair i is rows (i, h + i) of the combined state, sharing one
+        signature table and one overflow-remap dict."""
+        from ..golden import intersect as _gx
+        from ..io import native as _native
+
+        h = st["n"] // 2
+        _t = time.time()
+        ov = self._remap_collect(st["remap_fut"])
+        self._tick("pfin.remap_collect", _t)
+        _t = time.time()
+        cov_all = st["cov"]
+        for i in st["overflow_rows"]:
+            cov_all[i] = ov[i][1]
+        cov1 = cov_all[:n1]
+        cov2 = cov_all[h : h + n1]
+        cov = cov1 + cov2
+        inv = st["inv"]
+        inv1 = inv[:n1]
+        inv2 = inv[h : h + n1]
+        none_mask = st["none_mask"]
+        sf, ss = st["sig_flat"], st["sig_start"]
+        has_ovr = none_mask[inv1] | none_mask[inv2]
+        m1 = cov1 > 0
+        m2 = cov2 > 0
+        case = m1.astype(np.int64) * 2 + m2.astype(np.int64)
+        key1 = np.where(m1, inv1, -1)
+        key2 = np.where(m2, inv2, -1)
+        simple = ~has_ovr
+        uk, kinv = _group_rows(np.stack([case, key1, key2], axis=1)[simple])
+        self._tick("pfin.group", _t)
+        _t = time.time()
+        U = len(uk)
+        c_u, g1_u, g2_u = uk[:, 0], uk[:, 1], uk[:, 2]
+        both = c_u == 3
+        only1 = c_u == 2
+        only2 = c_u == 1
+        lens_u = np.zeros(U, np.int64)
+        flat3 = np.zeros(0, np.uint32)
+        offs3 = np.zeros(1, np.int64)
+        if both.any():
+            fa, oa = _csr_rows(sf, ss, g1_u[both])
+            fb, ob = _csr_rows(sf, ss, g2_u[both])
+            try:
+                from ..ops.native import intersect_pairs
+
+                flat3, offs3 = intersect_pairs(fa, oa, fb, ob)
+            except NATIVE_ERRORS:
+                parts = []
+                nb = int(both.sum())
+                offs3 = np.zeros(nb + 1, np.int64)
+                for j in range(nb):
+                    eq = _gx(
+                        [int(x) for x in fa[oa[j] : oa[j + 1]]],
+                        [int(x) for x in fb[ob[j] : ob[j + 1]]],
+                    )
+                    parts.append(np.asarray(eq, np.uint32))
+                    offs3[j + 1] = offs3[j] + len(parts[-1])
+                flat3 = (
+                    np.concatenate(parts) if parts else np.zeros(0, np.uint32)
+                )
+            lens_u[both] = np.diff(offs3)
+        lens_u[only1] = np.diff(ss)[g1_u[only1]]
+        lens_u[only2] = np.diff(ss)[g2_u[only2]]
+        sig_start = np.zeros(U + 1, np.int64)
+        np.cumsum(lens_u, out=sig_start[1:])
+        sig_flat = np.empty(int(sig_start[-1]), np.uint32)
+        _fill_rows(sig_flat, sig_start, np.nonzero(both)[0], flat3, offs3)
+        for mask, gu in ((only1, g1_u), (only2, g2_u)):
+            idxs = np.nonzero(mask)[0]
+            if len(idxs):
+                src_flat, src_offs = _csr_rows(sf, ss, gu[idxs])
+                _fill_rows(sig_flat, sig_start, idxs, src_flat, src_offs)
+
+        sig_of_read = np.full(n1, -1, np.int64)
+        sig_of_read[simple] = kinv
+        self._tick("pfin.intersect", _t)
+        _t = time.time()
+
+        # override rows (either mate -2/-3-flagged): each mate's resolved
+        # EC lists assemble as CSR arrays (flagged mate -> its remap list,
+        # clean mapped mate -> its signature row); both-mapped rows then
+        # batch through ONE C++ intersect_pairs call and single-mate rows
+        # bulk-copy — no per-row python list handling
+        ovr_rows = np.nonzero(has_ovr)[0].astype(np.int64)
+        R = len(ovr_rows)
+
+        def _mate_csr(row_off, invm, m):
+            """CSR of each override row's resolved list for one mate
+            (global combined-batch row = pair row + row_off)."""
+            g = invm[ovr_rows]
+            mapped = m[ovr_rows]
+            from_ov = none_mask[g] & mapped
+            from_sig = mapped & ~none_mask[g]
+            lens = np.zeros(R, np.int64)
+            lens[from_sig] = np.diff(ss)[g[from_sig]]
+            ov_lists = [
+                np.asarray(ov[int(i) + row_off][0], np.uint32)
+                for i in ovr_rows[from_ov]
+            ]
+            lens[from_ov] = [len(x) for x in ov_lists]
+            offs = np.zeros(R + 1, np.int64)
+            np.cumsum(lens, out=offs[1:])
+            flat = np.empty(int(offs[-1]), np.uint32)
+            sflat, soffs = _csr_rows(sf, ss, g[from_sig])
+            _fill_rows(flat, offs, np.nonzero(from_sig)[0], sflat, soffs)
+            if ov_lists:
+                ooffs = np.zeros(len(ov_lists) + 1, np.int64)
+                np.cumsum(lens[from_ov], out=ooffs[1:])
+                _fill_rows(flat, offs, np.nonzero(from_ov)[0],
+                           np.concatenate(ov_lists), ooffs)
+            return flat, offs, mapped
+
+        ovr_start = np.zeros(R + 1, np.int64)
+        ovr_ids = np.zeros(0, np.uint32)
+        if R:
+            fa_, oa_, map1 = _mate_csr(0, inv1, m1)
+            fb_, ob_, map2 = _mate_csr(h, inv2, m2)
+            both_r = map1 & map2
+            a_only = map1 & ~map2
+            b_only = map2 & ~map1
+            out_lens = np.zeros(R, np.int64)
+            out_lens[a_only] = np.diff(oa_)[a_only]
+            out_lens[b_only] = np.diff(ob_)[b_only]
+            flat_o = np.zeros(0, np.uint32)
+            offs_o = np.zeros(1, np.int64)
+            if both_r.any():
+                bidx = np.nonzero(both_r)[0]
+                fa, oa = _csr_rows(fa_, oa_, bidx)
+                fb, ob = _csr_rows(fb_, ob_, bidx)
+                try:
+                    from ..ops.native import intersect_pairs
+
+                    flat_o, offs_o = intersect_pairs(fa, oa, fb, ob)
+                except NATIVE_ERRORS:
+                    parts = []
+                    offs_o = np.zeros(len(bidx) + 1, np.int64)
+                    for t in range(len(bidx)):
+                        eq = _gx(
+                            [int(x) for x in fa[oa[t] : oa[t + 1]]],
+                            [int(x) for x in fb[ob[t] : ob[t + 1]]],
+                        )
+                        parts.append(np.asarray(eq, np.uint32))
+                        offs_o[t + 1] = offs_o[t] + len(parts[-1])
+                    flat_o = (np.concatenate(parts) if parts
+                              else np.zeros(0, np.uint32))
+                out_lens[both_r] = np.diff(offs_o)
+            np.cumsum(out_lens, out=ovr_start[1:])
+            ovr_ids = np.empty(int(ovr_start[-1]), np.uint32)
+            _fill_rows(ovr_ids, ovr_start, np.nonzero(both_r)[0],
+                       flat_o, offs_o)
+            for mask, f_, o_ in ((a_only, fa_, oa_), (b_only, fb_, ob_)):
+                idxs = np.nonzero(mask)[0]
+                if len(idxs):
+                    src_flat, src_offs = _csr_rows(f_, o_, idxs)
+                    _fill_rows(ovr_ids, ovr_start, idxs, src_flat, src_offs)
+
+        self._tick("pfin.overrides", _t)
+        _t = time.time()
+        ids_concat, id_offs = _concat_ids_for_emit(b1)
+        out = _native.emit_records_sig(
+            cov, self.config.read_coverage_threshold, ids_concat, id_offs,
+            sig_of_read, sig_start, sig_flat, ovr_rows, ovr_start, ovr_ids,
+        )
+        self._tick("pfin.emit", _t)
+        return out
+
+    def map_fastq_paired(self, path1: str, path2: str):
+        """Paired-end mapping: both mates are mapped
+        and their equivalence classes intersected — the compatible set for
+        the fragment.  If only one mate maps, its class is used; if
+        neither maps, the pair is unmapped.  Coverage is summed.
+
+        The reference has no paired mode (single FASTQ only,
+        src/bin/pseudoaligner.rs:28); semantics follow kallisto's
+        paired-end EC intersection.
+
+        Batched fast path: both mates' device steps for the NEXT batch pair
+        are dispatched before the current pair's host post-processing (the
+        same double-buffer pattern as map_fastq), and pair intersections
+        are memoized by (eq_a, eq_b) signature — mate signatures repeat
+        heavily, so almost every pair is a dict hit.
+        """
+        r1 = FastqReader(path1, self.config.batch_size, self.config.max_read_len)
+        r2 = FastqReader(path2, self.config.batch_size, self.config.max_read_len)
+        it1, it2 = iter(r1), iter(r2)
+        pending = None
+        pair_memo: dict = {}
+        while True:
+            b1 = next(it1, None)
+            b2 = next(it2, None)
+            if (b1 is None) != (b2 is None) or (
+                b1 is not None and b1.n_reads != b2.n_reads
+            ):
+                for rdr in (r1, r2):  # attribute stashed gz corruption
+                    err = rdr.pending_error()
+                    if err is not None:
+                        raise err
+                raise ValueError("paired FASTQs have different read counts")
+            if b1 is None:
+                break
+            res1 = self.map_batch_device(b1.codes, b1.lens)
+            res2 = self.map_batch_device(b2.codes, b2.lens)
+            if pending is not None:
+                yield from self._paired_rows(*pending, pair_memo)
+            pending = (res1, res2, b1, b2)
+        if pending is not None:
+            yield from self._paired_rows(*pending, pair_memo)
+
+    def _paired_rows(self, res1, res2, b1, b2, pair_memo: dict):
+        from ..golden import intersect
+
+        recs1 = self.records_from_result(res1, b1)
+        recs2 = self.records_from_result(res2, b2)
+        thresh = self.config.read_coverage_threshold
+        for a, b in zip(recs1, recs2):
+            cov = a.coverage + b.coverage
+            if a.coverage and b.coverage:
+                key = (tuple(a.eq_class), tuple(b.eq_class))
+                eq = pair_memo.get(key)
+                if eq is None:
+                    eq = intersect(list(a.eq_class), b.eq_class)
+                    pair_memo[key] = eq
+                eq = list(eq)  # records must not share the memo's list
+            elif a.coverage:
+                eq = a.eq_class
+            elif b.coverage:
+                eq = b.eq_class
+            else:
+                eq = []
+            flag = cov >= thresh and len(eq) == 0
+            yield ReadRecord(flag, a.read_id, eq, cov)

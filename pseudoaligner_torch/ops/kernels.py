@@ -1,5 +1,5 @@
 """Build, bind and launch the CUDA kernels (csrc/seed.cu K1, csrc/walk.cu
-K2, csrc/stats.cu K3).
+K2, csrc/stats.cu K3, csrc/ecbits.cu K4, csrc/unpack.cu K5).
 
 The sources compile with nvcc for sm_90a, one nvcc per source, all
 started together, and link into one shared library with a plain C
@@ -27,7 +27,13 @@ import torch
 
 from ..index.cuckoo import B1_SLOTS
 from ..index.mphf import MAX_LEVELS
-from .map_kernel import SEED_INDEXES, DeviceIndex, MapMeta, MapResult
+from .map_kernel import (
+    SEED_INDEXES,
+    DeviceIndex,
+    MapMeta,
+    MapResult,
+    PackCfg,
+)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -117,6 +123,11 @@ def _load():
             lib.pa_walk.argtypes = [_P, _P, ctypes.c_float, _I] + [_P] * 13
             lib.pa_stats.restype = _I
             lib.pa_stats.argtypes = [_P, _P, _I, _P, _P, _P, _P]
+            lib.pa_ec_bits.restype = _I
+            lib.pa_ec_bits.argtypes = [_I, _I, _I, _I] + [_P] * 7
+            lib.pa_unpack_index.restype = _I
+            lib.pa_unpack_index.argtypes = ([_I, ctypes.c_longlong, _I, _I,
+                                             _I] + [_P] * 7)
             lib.pa_error_string.restype = ctypes.c_char_p
             lib.pa_error_string.argtypes = [_I]
             _lib = lib
@@ -321,7 +332,81 @@ def stats_cuda(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
 stats_cuda.launches = 0
 
 
+def ec_bits_cuda(meta: MapMeta, idx: DeviceIndex, nodes: torch.Tensor,
+                 n_nodes: torch.Tensor, mapped: torch.Tensor) -> torch.Tensor:
+    """K4: a full-output walk's nodes [B, max_nodes] int32, n_nodes [B]
+    int32 and mapped [B] bool -> ec_bits [B, TW] int32 (uint32 bit
+    patterns; see csrc/ecbits.cu)."""
+    if not nodes.is_cuda:
+        raise ValueError("the CUDA kernels take CUDA tensors")
+    dev, TW = nodes.device, meta.tx_words
+    B, M = nodes.shape
+    if TW < 1 or M < 1:
+        raise ValueError(f"tx_words {TW} and max_nodes {M} must be >= 1")
+    _check("nodes", nodes, torch.int32, (B, M), dev)
+    _check("n_nodes", n_nodes, torch.int32, (B,), dev)
+    _check("mapped", mapped, torch.bool, (B,), dev)
+    _check("node_row", idx.node_row, torch.int32,
+           (idx.node_row.shape[0], 12), dev)
+    _check("ec_bits", idx.ec_bits, torch.int32, (idx.ec_bits.shape[0], TW),
+           dev)
+    lib = _load()
+    out = torch.empty((B, TW), dtype=torch.int32, device=dev)
+    rc = lib.pa_ec_bits(dev.index, B, M, TW, nodes.data_ptr(),
+                        n_nodes.data_ptr(), mapped.data_ptr(),
+                        idx.node_row.data_ptr(), idx.ec_bits.data_ptr(),
+                        out.data_ptr(), _stream(dev))
+    _raise_on(lib, rc, "ec_bits kernel")
+    ec_bits_cuda.launches += 1
+    return out
+
+
+ec_bits_cuda.launches = 0
+
+
+def unpack_index_cuda(packed: dict, cfg: PackCfg):
+    """K5: the bit-packed upload's arrays on the card (vals_lo [S] int32,
+    vals_hi [S] int16, and keys_lo [S] int32 with keys_hi [S, PB-4] uint8,
+    or the plain `cuckoo` rows) -> (cuckoo [S/4, 4W], cuckoo_vals [2S])
+    int32, as map_kernel.unpack_index (see csrc/unpack.cu)."""
+    vlo = packed["vals_lo"]
+    if not vlo.is_cuda:
+        raise ValueError("the CUDA kernels take CUDA tensors")
+    dev, S, W = vlo.device, cfg.S, cfg.W
+    if not 1 <= cfg.node_bits <= 30 or not 1 <= cfg.off_bits <= 32:
+        raise ValueError(f"field widths {cfg.node_bits}, {cfg.off_bits}")
+    _check("vals_lo", vlo, torch.int32, (S,), dev)
+    _check("vals_hi", packed["vals_hi"], torch.int16, (S,), dev)
+    vals = torch.empty(2 * S, dtype=torch.int32, device=dev)
+    if cfg.pack_keys:
+        if W != 2:
+            raise ValueError(f"packed keys need W == 2, got {W}")
+        hb = cfg.PB - 4
+        _check("keys_lo", packed["keys_lo"], torch.int32, (S,), dev)
+        _check("keys_hi", packed["keys_hi"], torch.uint8, (S, hb), dev)
+        cuckoo = torch.empty((S // 4, 4 * W), dtype=torch.int32, device=dev)
+        klo, khi, kout = (packed["keys_lo"].data_ptr(),
+                          packed["keys_hi"].data_ptr(), cuckoo.data_ptr())
+    else:
+        hb = 0
+        cuckoo = packed["cuckoo"]
+        _check("cuckoo", cuckoo, torch.int32, (S // 4, 4 * W), dev)
+        klo = khi = kout = None
+    lib = _load()
+    rc = lib.pa_unpack_index(dev.index, S, cfg.node_bits, cfg.off_bits, hb,
+                             vlo.data_ptr(), packed["vals_hi"].data_ptr(),
+                             klo, khi, vals.data_ptr(), kout, _stream(dev))
+    _raise_on(lib, rc, "unpack kernel")
+    unpack_index_cuda.launches += 1
+    return cuckoo, vals
+
+
+unpack_index_cuda.launches = 0
+
+
 def reset_launch_counts() -> None:
     seed_tables_cuda.launches = 0
     walk_cuda.launches = 0
     stats_cuda.launches = 0
+    ec_bits_cuda.launches = 0
+    unpack_index_cuda.launches = 0

@@ -1,7 +1,7 @@
 """The batched read-mapping step: device index, seed pass and graph walk.
 
-Port of `pseudoaligner_tpu/ops/map_kernel.py` for the single-end serving
-path.  One batch of 2-bit packed reads goes through two passes:
+Port of `pseudoaligner_tpu/ops/map_kernel.py`.  One batch of 2-bit packed
+reads goes through two passes:
 
 - the seed pass (`seed_tables`): every probed read position's k-mer is
   looked up in the seed index, and a stride-3 next-hit table
@@ -10,7 +10,11 @@ path.  One batch of 2-bit packed reads goes through two passes:
 - the walk (`walk`): per read, left extension under the per-segment SNP
   budget, then the forward unitig walk with re-seeds from `nh3` (or lazy
   seek probes off the residue-0 grid), iteration caps, and the compact
-  run-length EC-id output (or the full node list when distinct_cap = 0).
+  run-length EC-id output (or the full node list when distinct_cap = 0),
+- and, in the full-output shape of a transcriptome of at most
+  `bitset_tx_threshold` transcripts (meta.tx_words > 0), the bitset EC
+  intersection (`ec_bitset_intersect`): per read, the AND of its classes'
+  transcript bitsets.
 
 The seed index (`MapMeta.seed_index`, `seed_probe`) is one of:
 
@@ -20,12 +24,12 @@ The seed index (`MapMeta.seed_index`, `seed_probe`) is one of:
 - "mphf": the BBHash MPHF with a stored-key verify (ops/mphf_lookup.py).
   It has no lazy seeds: every position of every residue is probed up front.
 
-`map_batch_packed` runs the CUDA kernels (ops/kernels.py, csrc/seed.cu and
-csrc/walk.cu) for CUDA tensors and the plain PyTorch passes below for CPU
-tensors.  The plain passes are batched, masked tensor code written from the
-reference's semantics, independent of the CUDA sources; tests hold them
-equal to the JAX reference and chip_smoke.py holds the kernels equal to
-them on the card.
+`map_batch_packed` runs the CUDA kernels (ops/kernels.py, csrc/seed.cu,
+csrc/walk.cu and csrc/ecbits.cu) for CUDA tensors and the plain PyTorch
+passes below for CPU tensors.  The plain passes are batched, masked
+tensor code written from the reference's semantics, independent of the
+CUDA sources; tests hold them equal to the JAX reference and
+chip_smoke.py holds the kernels equal to them on the card.
 
 TPU-only knobs of AlignerConfig are read and ignored here: pool_overlap /
 pool_stride, walk_unroll, walk_straightline, left_compact, walk_split /
@@ -36,6 +40,10 @@ reference's left_compact capacity overflow (-3 on lanes beyond the
 compacted buffer) therefore has no counterpart; those reads come out of the
 port with their exact result, and emitted records are identical because
 the reference re-maps its -3 reads exactly on the host.
+
+`upload` may ship a large cuckoo table bit-packed (`pack_serving_args`)
+and unpack it on the device (`unpack_index`, or csrc/unpack.cu on a GPU)
+into exactly the plain upload's arrays.
 """
 
 from __future__ import annotations
@@ -73,6 +81,10 @@ SEED_INDEXES = ("cuckoo", "bucket1", "mphf")
 # the arrays only the MPHF probe (and batch_stats) reads
 MPHF_ARRAYS = ("mphf_bits", "mphf_ranks", "kmer_keys", "kmer_node",
                "kmer_offset")
+# the default gate of the packed upload: cuckoo keys plus values of at
+# least this many bytes travel bit-packed (the reference's
+# PA_PACK_UPLOAD_MIN default)
+PACK_MIN_BYTES = 128 << 20
 
 
 @dataclass
@@ -100,6 +112,9 @@ class DeviceIndex:
     kmer_keys: object  # [nk, W] slot-ordered k-mer words
     kmer_node: object  # [nk] slot -> node
     kmer_offset: object  # [nk] slot -> offset in the node
+    ec_bits: object  # [n_ecs, TW] per-class transcript bitsets (bit t of
+    #                  word w = transcript 32w + t), or [1, 0] when
+    #                  meta.tx_words == 0
 
     def nbytes(self) -> int:
         """Bytes of an uploaded index (tensors)."""
@@ -119,6 +134,7 @@ class MapMeta:
     left_extend_fraction: float
     max_nodes: int
     cuckoo_mask: int  # bucket count - 1 (cuckoo and bucket1)
+    tx_words: int = 0  # ceil(n_tx/32) when the bitset EC path is on, else 0
     seed_index: str = "cuckoo"  # "cuckoo" | "bucket1" | "mphf"
     bucket_seed: int = 0  # bucket1: the (possibly re-salted) hash seed
     mphf: MphfMeta = MphfMeta((), (), (), ())
@@ -151,14 +167,17 @@ class MapResult(NamedTuple):
     Compact mode (distinct_cap > 0): `ec_distinct [B, DC]` holds each
     read's run-compacted EC ids, -1 padded; the last slot is -2 when more
     than DC runs were visited and -3 when a cap cut the walk (both mean:
-    re-map this read exactly).  Full mode: `nodes [B, max_nodes]`."""
+    re-map this read exactly).  Full mode: `nodes [B, max_nodes]`, and
+    `ec_bits [B, TW]` when meta.tx_words > 0."""
 
     mapped: torch.Tensor  # [B] bool
     coverage: torch.Tensor  # [B] int32 (uint8 when meta.cov_out_8)
     mismatches: torch.Tensor  # [B] int32
     nodes: torch.Tensor  # [B, max_nodes] int32, or [B, 0] in compact mode
     n_nodes: torch.Tensor  # [B] int32, all pushes (may exceed max_nodes)
-    ec_bits: torch.Tensor  # [B, 0] uint32 (the bitset EC path is not ported)
+    ec_bits: torch.Tensor  # [B, TW] uint32 intersected transcript bitsets
+    #                        (zeros for unmapped reads); [B, 0] in compact
+    #                        mode or when meta.tx_words == 0
     ec_distinct: torch.Tensor  # [B, DC] int32/int16, or [B, 0]
 
 
@@ -196,6 +215,29 @@ def _pack_pool_rows(seq_pool: np.ndarray, pad_front: int,
     return dna.pack_codes_2bit(codes).reshape(-1, 8)
 
 
+def build_ec_bitsets(ec_offsets: np.ndarray, ec_txs: np.ndarray,
+                     n_tx: int) -> np.ndarray:
+    """[M, ceil(n_tx/32)] uint32: bit t of word w = transcript 32w+t."""
+    M = len(ec_offsets) - 1
+    TW = (n_tx + 31) // 32
+    bits = np.zeros((M, TW), dtype=np.uint32)
+    lens = np.diff(ec_offsets.astype(np.int64))
+    ec_of_entry = np.repeat(np.arange(M), lens)
+    tx = ec_txs.astype(np.int64)
+    np.bitwise_or.at(
+        bits, (ec_of_entry, tx >> 5),
+        np.uint32(1) << (tx & 31).astype(np.uint32))
+    return bits
+
+
+def _tx_words(image, config: AlignerConfig) -> int:
+    """Bitset width of the EC path: ceil(n_tx/32) when the transcriptome
+    has at most config.bitset_tx_threshold transcripts, else 0 (the
+    reference's `_derived_knobs`)."""
+    n_tx = len(image.tx_names)
+    return (n_tx + 31) // 32 if n_tx <= config.bitset_tx_threshold else 0
+
+
 def _pool_pad(max_read_len: int) -> int:
     """Zero bases at each end of the pool: at least one read length, so
     no compare window of a node leaves the pool (the reference's
@@ -213,8 +255,12 @@ def device_index_from_image(image, config: AlignerConfig):
         raise ValueError(f"seed_index={config.seed_index!r}, expected one "
                          f"of {SEED_INDEXES}")
     pool_pad = _pool_pad(config.max_read_len)
+    tx_words = _tx_words(image, config)
     W = image.kmer_keys.shape[1]
     pool_rows = _pack_pool_rows(image.seq_pool, pool_pad, pool_pad)
+    ec_bits = (build_ec_bitsets(image.ec_offsets, image.ec_txs,
+                                len(image.tx_names))
+               if tx_words > 0 else np.zeros((1, 0), np.uint32))
 
     node_row = np.zeros((image.n_nodes, 12), dtype=np.int32)
     node_row[:, 0] = image.node_start.astype(np.int64) + pool_pad
@@ -258,15 +304,15 @@ def device_index_from_image(image, config: AlignerConfig):
         mphf_bits=image.mphf.bits, mphf_ranks=image.mphf.ranks,
         kmer_keys=image.kmer_keys,
         kmer_node=image.kmer_node.astype(np.int32),
-        kmer_offset=image.kmer_offset.astype(np.int32))
-    meta = _make_meta(image, config, mask, bucket_seed, ones_node, ones_off,
-                      pool_pad)
+        kmer_offset=image.kmer_offset.astype(np.int32), ec_bits=ec_bits)
+    meta = _make_meta(image, config, tx_words, mask, bucket_seed, ones_node,
+                      ones_off, pool_pad)
     return dev, meta
 
 
-def _make_meta(image, config: AlignerConfig, cuckoo_mask: int,
-               bucket_seed: int, ones_node: int, ones_off: int,
-               pool_pad: int) -> MapMeta:
+def _make_meta(image, config: AlignerConfig, tx_words: int,
+               cuckoo_mask: int, bucket_seed: int, ones_node: int,
+               ones_off: int, pool_pad: int) -> MapMeta:
     compact = config.distinct_cap > 0
     return MapMeta(
         k=image.k,
@@ -275,6 +321,7 @@ def _make_meta(image, config: AlignerConfig, cuckoo_mask: int,
         left_extend_fraction=config.left_extend_fraction,
         max_nodes=config.max_nodes,
         cuckoo_mask=cuckoo_mask,
+        tx_words=tx_words,
         seed_index=config.seed_index,
         bucket_seed=bucket_seed,
         mphf=MphfMeta.of(image.mphf),
@@ -295,9 +342,9 @@ def _make_meta(image, config: AlignerConfig, cuckoo_mask: int,
 def from_jax_device_index(dev_np, meta) -> tuple[DeviceIndex, MapMeta]:
     """The reference's numpy DeviceIndex and MapMeta -> the port's, so
     both engines compute on the same arrays.  Reads them duck-typed, as
-    plain attributes.  Takes every seed index, but needs the
-    non-overlapping pool (pool_stride = 0); the reference's bitset fields
-    (tx_words, ec_bits) have no counterpart here."""
+    plain attributes.  Takes every seed index and the bitset fields
+    (tx_words, ec_bits), but needs the non-overlapping pool
+    (pool_stride = 0)."""
     if meta.seed_index not in SEED_INDEXES or meta.pool_stride != 0:
         raise ValueError(f"need a seed_index of {SEED_INDEXES} and "
                          f"pool_stride=0, got {meta.seed_index!r}, "
@@ -334,23 +381,162 @@ def _as_tensor(a: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
-def upload(dev: DeviceIndex, device, serving: MapMeta | None = None
-           ) -> DeviceIndex:
+def packed_tensors(args: dict, device) -> dict:
+    """`pack_serving_args`' arrays -> tensors on `device`: uint32 and
+    uint16 as their int32 and int16 bit patterns, uint8 as is."""
+    signed = {np.dtype(np.uint32): np.int32, np.dtype(np.uint16): np.int16}
+    out = {}
+    for name, a in args.items():
+        a = np.ascontiguousarray(a)
+        if a.dtype in signed:
+            a = a.view(signed[a.dtype])
+        out[name] = torch.from_numpy(a).to(device)
+    return out
+
+
+def upload(dev: DeviceIndex, device, serving: MapMeta | None = None,
+           pack: bool | None = None) -> DeviceIndex:
     """Move a numpy DeviceIndex to `device` as int32 tensors.
 
     With `serving` (the meta the index serves with), the arrays its seed
     index never reads travel as empty dummies, as the reference's
     `upload_device_index` does: the MPHF and the slot-ordered keys and
     values in cuckoo and bucket1 mode.  Without it every array is kept,
-    as `batch_stats` needs."""
+    as `batch_stats` needs.
+
+    `pack` chooses the bit-packed upload of the cuckoo keys and values
+    (`pack_serving_args`, unpacked on the device by `unpack_index` or, on a
+    GPU, csrc/unpack.cu): None applies the reference's gate (a cuckoo
+    serving index of more than one bucket whose keys and values take at
+    least PACK_MIN_BYTES, and values that fit the packed fields); True
+    forces it and raises where the index cannot be packed; False never
+    packs.  Either way the uploaded arrays are the same."""
     arrays = {f.name: getattr(dev, f.name) for f in fields(DeviceIndex)}
     if serving is not None and serving.seed_index != "mphf":
         W = np.asarray(dev.kmer_keys).shape[1]
         for name in MPHF_ARRAYS:
             arrays[name] = np.zeros((0, W) if name == "kmer_keys" else 0,
                                     np.int32)
-    return DeviceIndex(**{n: _as_tensor(a, device)
-                          for n, a in arrays.items()})
+    packed = None
+    cuckoo = serving is not None and serving.seed_index == "cuckoo"
+    if pack is None:
+        ck, cv = np.asarray(dev.cuckoo), np.asarray(dev.cuckoo_vals)
+        if cuckoo and ck.shape[0] > 1 and (ck.nbytes + cv.nbytes
+                                            >= PACK_MIN_BYTES):
+            packed = pack_serving_args(dev, serving)
+    elif pack:
+        if not cuckoo:
+            raise ValueError("the packed upload takes a cuckoo index and its "
+                             "serving meta (upload(..., serving=meta))")
+        packed = pack_serving_args(dev, serving)
+        if packed is None:
+            raise ValueError("the index's values do not fit the packed "
+                             "fields")
+    out = {n: _as_tensor(a, device) for n, a in arrays.items()
+           if packed is None or n not in ("cuckoo", "cuckoo_vals")}
+    if packed is not None:
+        args, cfg = packed
+        t = packed_tensors(args, device)
+        if t["vals_lo"].is_cuda:
+            from .kernels import unpack_index_cuda
+
+            out["cuckoo"], out["cuckoo_vals"] = unpack_index_cuda(t, cfg)
+        else:
+            out["cuckoo"], out["cuckoo_vals"] = unpack_index(t, cfg)
+    return DeviceIndex(**out)
+
+
+# ---------------------------------------------------------------------------
+# the bit-packed upload of the cuckoo tables
+# ---------------------------------------------------------------------------
+
+
+class PackCfg(NamedTuple):
+    """Layout of a bit-packed cuckoo upload: the reference's
+    `_pack_unpack_jit` signature without the pool (the port's pool never
+    overlaps) and without the TPU's tile padding of the slots."""
+
+    pack_keys: bool  # keys ride as keys_lo / keys_hi (W == 2), else plain
+    node_bits: int  # node field width; all-ones marks an empty slot
+    off_bits: int  # offset field width
+    W: int  # key words per slot
+    PB: int  # packed key bytes, ceil(2k / 8)
+    S: int  # slots (buckets * 4)
+
+
+def pack_serving_args(dev: DeviceIndex, meta: MapMeta):
+    """Host bit-pack of a cuckoo index's keys and values -> (arrays,
+    PackCfg), or None when the values do not fit the packed fields.
+
+    The reference's `_pack_serving_args` on the real slots only (no
+    padding of the slots to a multiple of 512):
+
+    - vals_lo [S] uint32 / vals_hi [S] uint16: the slot's node in the low
+      node_bits bits and its offset above them (empty slots: the all-ones
+      node field, offset 0);
+    - at W == 2, keys_lo [S] uint32 (key word 0) and keys_hi [S, PB-4]
+      uint8 (the low bytes of key word 1, whose bits above 2k are zero);
+      at other W the keys-only rows ride plain as `cuckoo`."""
+    cuckoo = np.asarray(dev.cuckoo).view(np.uint32)
+    vals = np.asarray(dev.cuckoo_vals).view(np.uint32)
+    nb = cuckoo.shape[0]
+    W = cuckoo.shape[1] // CK_SLOTS
+    S = nb * CK_SLOTS
+    if vals.shape != (2 * S,):
+        return None
+    PB = (2 * meta.k + 7) // 8
+    node_u = vals[0::2]
+    is_empty = node_u == np.uint32(CK_EMPTY)
+    # field widths from the actual maxima; the all-ones node field exceeds
+    # every real node id
+    node_bits = max(1, int(np.asarray(dev.node_row).shape[0]).bit_length())
+    offs = vals[1::2].astype(np.uint64)
+    off_bits = max(1, int(offs[~is_empty].max(initial=0)).bit_length())
+    if not (node_bits <= 30 and off_bits <= 32
+            and node_bits + off_bits <= 46):
+        return None
+    pack_keys = W == 2 and PB < 4 * W
+    fmax = np.uint64((1 << node_bits) - 1)
+    v = np.where(is_empty, fmax, node_u.astype(np.uint64)) | (
+        np.where(is_empty, np.uint64(0), offs) << np.uint64(node_bits))
+    args = {"vals_lo": (v & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+            "vals_hi": (v >> np.uint64(32)).astype(np.uint16)}
+    if pack_keys:
+        kb = np.ascontiguousarray(cuckoo.reshape(S, W)).view(
+            np.uint8).reshape(S, 4 * W)
+        args["keys_lo"] = kb[:, :4].copy().view(np.uint32).reshape(S)
+        args["keys_hi"] = np.ascontiguousarray(kb[:, 4:PB])
+    else:
+        args["cuckoo"] = cuckoo
+    return args, PackCfg(pack_keys, node_bits, off_bits, W, PB, S)
+
+
+def unpack_index(packed: dict, cfg: PackCfg):
+    """Plain PyTorch unpack of `pack_serving_args`' arrays (as tensors:
+    uint32 and uint16 carried as int32 and int16) -> (cuckoo [S/4, 4W],
+    cuckoo_vals [2S]) int32, equal to the plain upload's arrays.
+
+    Empty slots (all-ones node field) come back as (EMPTY, 0), and their
+    packed keys, whose high bytes read all-ones, as the all-ones key."""
+    vlo = packed["vals_lo"].to(torch.int64) & MASK32
+    vhi = packed["vals_hi"].to(torch.int64) & 0xFFFF
+    nmask = (1 << cfg.node_bits) - 1
+    node = vlo & nmask
+    empty = node == nmask
+    off = ((vlo >> cfg.node_bits) | (vhi << (32 - cfg.node_bits))) & (
+        (1 << cfg.off_bits) - 1)
+    node = torch.where(empty, int(CK_EMPTY), node)
+    off = torch.where(empty, 0, off)
+    vals = _as_i32(torch.stack([node, off], dim=1).reshape(-1))
+    if not cfg.pack_keys:
+        return packed["cuckoo"], vals
+    hi = torch.zeros_like(vlo)
+    for j in range(cfg.PB - 4):
+        hi |= packed["keys_hi"][:, j].to(torch.int64) << (8 * j)
+    hi = torch.where(empty, MASK32, hi)
+    lo = packed["keys_lo"].to(torch.int64) & MASK32
+    keys = _as_i32(torch.stack([lo, hi], dim=1))
+    return keys.reshape(cfg.S // CK_SLOTS, CK_SLOTS * cfg.W), vals
 
 
 # ---------------------------------------------------------------------------
@@ -672,6 +858,27 @@ def walk(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
     return _result(meta, buf, cov, mm, n_nodes, capped)
 
 
+def ec_bitset_intersect(meta: MapMeta, idx: DeviceIndex,
+                        nodes: torch.Tensor, n_nodes: torch.Tensor,
+                        mapped: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch bitset EC intersection -> [B, TW] int32 (uint32 bit
+    patterns).
+
+    Per read, the AND of idx.ec_bits[node_row[n, 3]] over the classes of
+    its first min(n_nodes, max_nodes) nodes (the node buffer holds only
+    those), from all-ones; 0 for reads that are not mapped.  AND is
+    idempotent, so a class met twice changes nothing."""
+    B, M = nodes.shape
+    dev = nodes.device
+    n = n_nodes.to(torch.int64).clamp(max=M)
+    used = (torch.arange(M, device=dev)[None, :] < n[:, None]) & (nodes >= 0)
+    ec = idx.node_row[nodes.clamp(min=0).to(torch.int64), 3].to(torch.int64)
+    bits = torch.full((B, meta.tx_words), -1, dtype=torch.int32, device=dev)
+    for j in range(int(n.max()) if B else 0):
+        bits &= torch.where(used[:, j, None], idx.ec_bits[ec[:, j]], -1)
+    return torch.where(mapped[:, None], bits, 0)
+
+
 def _result(meta: MapMeta, buf, cov, mm, n_nodes, capped) -> MapResult:
     B = buf.shape[0]
     dev = buf.device
@@ -715,12 +922,21 @@ def map_batch_packed(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
                      lens: torch.Tensor) -> MapResult:
     """Map a batch: packed [B, ceil(L/16)] int32 reads, lens [B] int32.
 
-    CUDA tensors go through the seed kernel (K1) and the walk kernel (K2);
-    a kernel that cannot build or launch raises.  CPU tensors go through
-    the plain PyTorch passes."""
+    CUDA tensors go through the seed kernel (K1), the walk kernel (K2) and,
+    in the full-output shape with meta.tx_words > 0, the bitset EC kernel
+    (K4); a kernel that cannot build or launch raises.  CPU tensors go
+    through the plain PyTorch passes."""
     if packed.is_cuda:
-        from .kernels import seed_tables_cuda, walk_cuda
+        from .kernels import ec_bits_cuda, seed_tables_cuda, walk_cuda
 
         nh3 = seed_tables_cuda(meta, idx, packed, lens)
-        return walk_cuda(meta, idx, packed, lens, nh3)
-    return walk(meta, idx, packed, lens, seed_tables(meta, idx, packed, lens))
+        res = walk_cuda(meta, idx, packed, lens, nh3)
+        intersect = ec_bits_cuda
+    else:
+        res = walk(meta, idx, packed, lens,
+                   seed_tables(meta, idx, packed, lens))
+        intersect = ec_bitset_intersect
+    if meta.distinct_cap == 0 and meta.tx_words > 0:
+        bits = intersect(meta, idx, res.nodes, res.n_nodes, res.mapped)
+        res = res._replace(ec_bits=bits.view(torch.uint32))
+    return res

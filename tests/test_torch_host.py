@@ -42,8 +42,10 @@ MPHF_FIELDS = ("seeds", "masks", "word_offsets", "key_offsets", "bits",
 
 def test_port_runs_without_the_reference(tmp_path):
     """In a process where pseudoaligner_tpu and jax cannot be imported,
-    chip_smoke and the port import, and the port's CLI builds an index
-    and maps on the CPU under the cuckoo and MPHF seed indexes."""
+    chip_smoke and the port import, and the port's CLI builds an index,
+    maps on the CPU under the cuckoo and MPHF seed indexes, maps pairs
+    (checked against the golden pair rule) and counts cells, on
+    chip_smoke's own recipes."""
     code = textwrap.dedent(f"""
         import io, sys
 
@@ -55,8 +57,10 @@ def test_port_runs_without_the_reference(tmp_path):
 
         sys.meta_path.insert(0, _Blocked())
         import numpy as np
+        import torch
         import chip_smoke
-        from pseudoaligner_torch import cli
+        from pseudoaligner_torch import cli, golden
+        from pseudoaligner_torch.config import AlignerConfig
         from pseudoaligner_torch.ops import kernels, map_kernel, stats
 
         d = {str(tmp_path)!r}
@@ -81,6 +85,57 @@ def test_port_runs_without_the_reference(tmp_path):
             outs.append(buf.getvalue())
         assert outs[0] == outs[1] and outs[0].count(b"\\n") == 500
         assert outs[0].count(b"[]") < 400, outs[0][:300]
+
+        # paired map and count, on chip_smoke's recipes and CLI runner
+        idx = d + "/idx.bin"
+        mates = chip_smoke.pair_reads(seqs, 300, 60, seed=7)
+        for m, r in zip((1, 2), mates):
+            chip_smoke.write_fastq(d + f"/p{{m}}.fq", r)
+        rc, _ = chip_smoke.run_cli(
+            ["map", "-i", idx, d + "/p1.fq", d + "/p2.fq", "--batch-size",
+             "128", "--max-read-len", "60", "--device", "cpu"],
+            d + "/pairs.out")
+        assert rc == 0, rc
+        with open(d + "/pairs.out", "rb") as f:
+            lines = f.read().splitlines()
+        assert len(lines) == 300
+        image = cli.open_index(idx)
+        oracle = golden.golden_oracle(image)
+        cfg = cli.serving_config(20, 128, 60)
+        for i in range(0, 300, 7):
+            assert lines[i] == golden.golden_pair_record(
+                oracle, f"r{{i}}", mates[0][i], mates[1][i], cfg).encode()
+        for m, r in zip((1, 2), chip_smoke.count_reads(seqs, 400, 60, seed=8,
+                                                       n_cells=20)):
+            chip_smoke.write_fastq(d + f"/c{{m}}.fq", r)
+        rc, _ = chip_smoke.run_cli(
+            ["count", "-i", idx, d + "/c1.fq", d + "/c2.fq", "-o",
+             d + "/cnt", "--batch-size", "128", "--max-read-len", "60",
+             "--device", "cpu"], d + "/count.out")
+        assert rc == 0, rc
+        with open(d + "/cnt/matrix.mtx") as f:
+            n_cells, n_cls, n_entries = map(int, f.read().split("\\n")[2]
+                                            .split())
+        assert n_cells > 0 and n_cls > 0 and n_entries > 0
+
+        # chip_smoke's bounds of the bitset and unpack kernels
+        full = AlignerConfig(k=20, batch_size=128, max_read_len=60,
+                             distinct_cap=0)
+        dev, meta = map_kernel.device_index_from_image(image, full)
+        assert meta.tx_words > 0
+        idx_t = map_kernel.upload(dev, "cpu", serving=meta)
+        res = map_kernel.map_batch_packed(
+            meta, idx_t,
+            torch.from_numpy(map_kernel.pack_reads_host(reads[:128])
+                             .view(np.int32)),
+            torch.full((128,), 60, dtype=torch.int32))
+        nbytes, ops = chip_smoke.ecbits_work(meta, idx_t, res)
+        assert nbytes > 4 * 128 * meta.tx_words and ops > 0
+        dev, meta = map_kernel.device_index_from_image(
+            image, cli.serving_config(20, 128, 60))
+        pargs, pcfg = map_kernel.pack_serving_args(dev, meta)
+        assert chip_smoke.unpack_work(pargs, pcfg) == (27 * pcfg.S,
+                                                       15 * pcfg.S)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pseudoaligner_tpu")]
         assert not bad, bad

@@ -13,7 +13,7 @@ from pseudoaligner_torch.ops import map_kernel as mk
 from .torch_helpers import _random_transcripts, build, polyt_transcripts
 
 ARRAYS = ("pool_rows", "node_row", "cuckoo", "cuckoo_vals", "mphf_bits",
-          "mphf_ranks", "kmer_keys", "kmer_node", "kmer_offset")
+          "mphf_ranks", "kmer_keys", "kmer_node", "kmer_offset", "ec_bits")
 
 
 @pytest.fixture(scope="module", params=["k20", "k64_polyT"])

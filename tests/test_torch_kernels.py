@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1 seed, K2 walk, K3 stats) against their plain
-PyTorch versions, under each seed index (cuckoo, bucket1, MPHF).
+"""The CUDA kernels (K1 seed, K2 walk, K3 stats, K4 bitset EC
+intersection, K5 packed-upload unpack) against their plain PyTorch
+versions, under each seed index (cuckoo, bucket1, MPHF).
 
 The card tests carry the `gpu` marker and skip without a CUDA device;
 chip_smoke.py runs the same comparison at full size on the card.  The CPU
@@ -132,6 +133,121 @@ def test_stats_kernel_matches_plain_on_cuda(k, L):
     torch.cuda.synchronize()
     assert got.tolist() == want.tolist()
     assert got[2] > 0  # false positives: the verify path ran
+
+
+def _ec_inputs(rng, B, M, TW, n_ecs, device):
+    """Random full-output node buffers (with -1 holes, n_nodes past the
+    buffer, unmapped rows) over a random node -> class table, and random
+    class bitsets of TW words."""
+    n_nodes_tab = 3 * n_ecs
+    node_row = np.zeros((n_nodes_tab, 12), np.int32)
+    node_row[:, 3] = rng.integers(0, n_ecs, n_nodes_tab)
+    bits = rng.integers(0, 2**32, (n_ecs, TW), dtype=np.uint64)
+    bits |= rng.integers(0, 2**32, (n_ecs, TW), dtype=np.uint64)  # dense
+    nodes = rng.integers(0, n_nodes_tab, (B, M)).astype(np.int32)
+    nodes[rng.random((B, M)) < 0.05] = -1
+    n_nodes = rng.integers(0, M + 5, B).astype(np.int32)
+    nodes[np.arange(M)[None, :] >= n_nodes[:, None]] = -1
+    mapped = (n_nodes > 0) & (rng.random(B) < 0.9)
+    idx = mk.DeviceIndex(**{f.name: torch.zeros(0, dtype=torch.int32,
+                                                device=device)
+                            for f in dataclasses.fields(mk.DeviceIndex)})
+    idx.node_row = torch.from_numpy(node_row).to(device)
+    idx.ec_bits = torch.from_numpy(
+        bits.astype(np.uint32).view(np.int32)).to(device)
+    meta = mk.MapMeta(k=20, read_len=64, allowed_mismatches=2,
+                      left_extend_fraction=0.2, max_nodes=M, cuckoo_mask=0,
+                      tx_words=TW)
+    return (meta, idx, torch.from_numpy(nodes).to(device),
+            torch.from_numpy(n_nodes).to(device),
+            torch.from_numpy(mapped).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,TW", [(8, 1), (64, 33), (120, 337), (64, 512)])
+def test_ec_bits_kernel_matches_plain_on_cuda(M, TW):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _ec_inputs(np.random.default_rng(M + TW), 1000, M, TW, 50,
+                      "cuda")
+    got = kernels.ec_bits_cuda(*args)
+    want = mk.ec_bitset_intersect(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+    assert (got != 0).any() and (got == 0).all(dim=1).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,L", [(20, 64), (64, 96)])
+def test_ec_bits_on_the_map_path_on_cuda(k, L):
+    """map_batch_packed in the full-output shape launches K4, and its
+    ec_bits equal the plain step's on the same index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kw = dict(distinct_cap=0, max_nodes=8)
+    meta, idx, packed, lens = _case(k, L, kw, "cuda")
+    assert meta.tx_words > 0
+    before = kernels.ec_bits_cuda.launches
+    got = mk.map_batch_packed(meta, idx, packed, lens)
+    assert kernels.ec_bits_cuda.launches == before + 1
+    want = mk.ec_bitset_intersect(meta, idx, got.nodes, got.n_nodes,
+                                  got.mapped)
+    torch.cuda.synchronize()
+    assert torch.equal(got.ec_bits.view(torch.int32), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,L", [(20, 64), (64, 96)])
+def test_unpack_kernel_matches_plain_on_cuda(k, L):
+    """K5 rebuilds the plain upload's cuckoo arrays from the packed ones
+    (keys and values packed at k = 20, values only at k = 64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    image, _ = _data(np.random.default_rng(k), k, L)
+    cfg = AlignerConfig(k=k, max_read_len=L)
+    dev_np, meta = mk.device_index_from_image(image, cfg)
+    args, pcfg = mk.pack_serving_args(dev_np, meta)
+    assert pcfg.pack_keys == (k == 20)
+    t = mk.packed_tensors(args, "cuda")
+    before = kernels.unpack_index_cuda.launches
+    got = kernels.unpack_index_cuda(t, pcfg)
+    assert kernels.unpack_index_cuda.launches == before + 1
+    want = mk.unpack_index(t, pcfg)
+    plain = mk.upload(dev_np, "cuda", serving=meta, pack=False)
+    packed = mk.upload(dev_np, "cuda", serving=meta, pack=True)
+    torch.cuda.synchronize()
+    for a, b, c, d in zip(got, want, (plain.cuckoo, plain.cuckoo_vals),
+                          (packed.cuckoo, packed.cuckoo_vals)):
+        assert a.dtype == b.dtype == c.dtype == torch.int32
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)
+    assert packed.nbytes() == plain.nbytes()
+
+
+def test_cpu_tensors_take_the_plain_passes_ec_bits_and_unpack():
+    """The bitset intersection and the packed upload's unpack take their
+    plain versions for CPU tensors; their wrappers refuse CPU tensors."""
+    meta, idx, packed, lens = _case(20, 64, dict(distinct_cap=0,
+                                                 max_nodes=8), "cpu")
+    before = (kernels.ec_bits_cuda.launches,
+              kernels.unpack_index_cuda.launches)
+    res = mk.map_batch_packed(meta, idx, packed, lens)
+    assert res.ec_bits.shape == (packed.shape[0], meta.tx_words)
+    assert (res.ec_bits.view(torch.int32) != 0).any()
+    image, _ = _data(np.random.default_rng(20), 20, 64)
+    dev_np, smeta = mk.device_index_from_image(
+        image, AlignerConfig(k=20, max_read_len=64))
+    up = mk.upload(dev_np, "cpu", serving=smeta, pack=True)
+    assert torch.equal(up.cuckoo_vals,
+                       mk.upload(dev_np, "cpu", serving=smeta).cuckoo_vals)
+    assert (kernels.ec_bits_cuda.launches,
+            kernels.unpack_index_cuda.launches) == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.ec_bits_cuda(meta, idx, res.nodes, res.n_nodes, res.mapped)
+    args, pcfg = mk.pack_serving_args(dev_np, smeta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernels.unpack_index_cuda(
+            mk.packed_tensors(args, "cpu"), pcfg)
 
 
 def test_cpu_tensors_take_the_plain_passes():
