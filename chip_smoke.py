@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: single-end
 `map` under each of its seed indexes, `batch_stats`, the bit-packed index
-upload, paired-end `map`, single-cell `count`, and the bitset EC path.
+upload, paired-end `map`, single-cell `count`, the bitset EC path, and the
+multi-device layer on one card.
 
     python3 chip_smoke.py [--seed 0] [--novel-bases 27000000] [--batches 16]
                           [--bitset-novel-bases 12000000]
@@ -67,7 +68,22 @@ Phases (every number printed is for the card named on the first line):
    batches in the full-output shape and timed; then `count_single_cell`
    and `map_fastq` through a distinct_cap = 0 aligner, each of which must
    launch K4, and 2,000 sampled `map_fastq` records equal to the golden
-   oracle's.
+   oracle's;
+12. the multi-device layer on this one card, with a real NCCL process group
+   of one process: (a) the read pack (K6), the routing (K7, route and
+   unscatter, at 1, 2, 4 and 8 shards), the shard-local MPHF probe (K8)
+   and K1's next_hit entry equal, tolerance 0, to their plain versions on
+   --batches' first 4 batches (next_hit also to K1's table over the whole
+   MPHF), and timed; (b) the k-mer-partitioned serving aligner over the
+   NCCL group emits every batch of the file, byte-identical to phase 6's
+   cuckoo CLI output (K6, K7, K8, next_hit and K2 must have launched);
+   (c) four loopback shards on the card give the replicated engine's
+   MapResults on 4 batches; (d) the data-parallel ShardedAligner on the
+   bitset index: its counts (the transcript-count kernel K9, all_reduce)
+   equal a host recount of K4's bitsets, K9 equal to its plain version;
+   (e) map_fastq_multihost at world size 1: its part file equals phase
+   11's map_fastq records and its merged counts their counts; (f) the
+   dry run `dryrun_multichip(1)`.
 
 Each kernel's bound is the least time the card could take for the work of
 this run's data: the bytes the function must move (inputs it needs read
@@ -520,6 +536,79 @@ def unpack_work(args, cfg):
     return nbytes, cfg.S * (12 + 3 * hb)
 
 
+def pack_work(codes):
+    """K6: the [B, L] int32 codes in, the packed words out; a shift and an
+    OR per code."""
+    B, L = codes.shape
+    return 4 * B * L + 4 * B * ((L + 15) // 16), 2 * B * L
+
+
+def route_work(packed, lens, k, read_len, n_shards, cap):
+    """K7, route then unscatter: the packed reads and lens in, every slot
+    of the send buffers (padding included) and the dropped flags out; the
+    returned pairs and their sources in, the [B, P] seed tables out.
+    Rolling the k-mers costs 3 operations per base of each position (as in
+    K1), hashing (9W + 2) per valid one."""
+    B = packed.shape[0]
+    P = read_len - k + 1
+    W = (2 * k + 31) // 32
+    slots = n_shards * cap
+    valid = int((lens.long() - k + 1).clamp(min=0, max=P).sum())
+    nbytes = (packed.numel() * 4 + B * 4 + slots * 4 * (W + 1) + B + 4
+              + slots * 12 + B * P * 8)
+    return nbytes, 3 * k * B * P + (9 * W + 2) * valid
+
+
+def mphf_dynamic_work(queries, shard, n_levels):
+    """K8: every query slot read and its result written, plus the shard's
+    probe and verify reads counted as in _mphf_work, with the shard's level
+    table, over the distinct queries: the zero-key padding of the send
+    buffers reads the same few words again and again, and an input byte
+    counts once."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from pseudoaligner_torch.ops.mphf_lookup import MphfMeta
+
+    m = MphfMeta(*(tuple(int(x) & 0xFFFFFFFF for x in t[:n_levels].tolist())
+                   for t in (shard.seeds, shard.masks, shard.word_offsets,
+                             shard.key_offsets)))
+    nbytes, ops = _mphf_work(
+        SimpleNamespace(mphf=m, kmer_words=queries.shape[1]),
+        SimpleNamespace(mphf_bits=shard.bits, mphf_ranks=shard.ranks,
+                        kmer_keys=shard.keys), torch.unique(queries, dim=0))
+    return nbytes + queries.numel() * 4 + queries.shape[0] * 8, ops
+
+
+def next_hit_work(seed_node):
+    """K1's next_hit entry: the [B, P] seed tables and lens in, nh3 out;
+    a few compares and selects per position."""
+    B, P = seed_node.shape
+    return B * P * 8 + B * 4 + B * P * 12, 4 * B * P
+
+
+def tx_counts_work(bits, n_tx):
+    """K9: the [B, TW] bitsets in, the counts out; a shift-and-mask and an
+    add per bit."""
+    B, TW = bits.shape
+    return B * TW * 4 + n_tx * 4, 64 * B * TW
+
+
+def host_counts(records, n_tx):
+    """Per-transcript counts of reference-style records (the class list
+    between the last '[' and the ']' after it)."""
+    import numpy as np
+
+    ids = []
+    for rec in records:
+        inner = rec.rsplit(b"[", 1)[1].split(b"]", 1)[0]
+        if inner:
+            ids.extend(int(x) for x in inner.split(b", "))
+    return np.bincount(np.asarray(ids, dtype=np.int64),
+                       minlength=n_tx).astype(np.int32)
+
+
 def run_cli(argv, out_path):
     """The port's CLI with its standard output sent to out_path;
     (return code, seconds)."""
@@ -668,7 +757,10 @@ def main(argv=None) -> int:
 
     ms = {}
 
-    def time_pair(name, f, reps, sym, n=n_b):
+    def time_pair(name, f, reps, sym, n=n_b, held_only=False):
+        """Time f over rotating batches; ms[name] is the trace's device
+        time where it saw every launch, else the held-event time (always
+        with held_only: a wrapper of several launches and memsets)."""
         span = span_ms(rotating(f, n), reps)
         dev_ms, seen = device_ms(rotating(f, n), reps, sym)
         held = held_ms(rotating(f, n), reps)
@@ -680,7 +772,7 @@ def main(argv=None) -> int:
             "events)")
         # the trace's device time where it saw every launch, else the
         # held-event time
-        ms[name] = dev_ms if dev_ms is not None and (
+        ms[name] = dev_ms if dev_ms is not None and not held_only and (
             sym is None or seen == reps) else held
 
     def serving_report(al, mode: str):
@@ -733,7 +825,13 @@ def main(argv=None) -> int:
                 "walk": kernels.walk_cuda.launches,
                 "stats": kernels.stats_cuda.launches,
                 "ec_bits": kernels.ec_bits_cuda.launches,
-                "unpack": kernels.unpack_index_cuda.launches}
+                "unpack": kernels.unpack_index_cuda.launches,
+                "pack": kernels.pack_reads_cuda.launches,
+                "route": kernels.route_cuda.launches,
+                "unscatter": kernels.unscatter_cuda.launches,
+                "mphf_dynamic": kernels.mphf_dynamic_cuda.launches,
+                "next_hit": kernels.next_hit_cuda.launches,
+                "tx_counts": kernels.tx_counts_cuda.launches}
 
     # ---- 3. cuckoo: kernels vs plain on the card ----
     cfg, al = serve_init("cuckoo")
@@ -1165,6 +1263,254 @@ def main(argv=None) -> int:
     say(f"[bitset] golden oracle: {len(sample12)} sampled map_fastq records "
         f"byte-identical ({time.time() - t:.1f} s)")
 
+    # ---- 12. multi-device on one card ----
+    import socket
+
+    import torch.distributed as dist
+
+    from pseudoaligner_torch.ops.map_kernel import (
+        next_hit_table,
+        pack_reads_device,
+    )
+    from pseudoaligner_torch.ops.mphf_lookup import dynamic_verified_lookup
+    from pseudoaligner_torch.parallel import sharded_index as si
+    from pseudoaligner_torch.parallel.comm import DistExchange
+    from pseudoaligner_torch.parallel.dryrun import dryrun_multichip
+    from pseudoaligner_torch.parallel.mesh import (
+        ShardedAligner,
+        make_mesh,
+        tx_compat_counts,
+    )
+    from pseudoaligner_torch.parallel.multihost import map_fastq_multihost
+
+    # a real NCCL process group of one process on this card
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        nccl_port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{nccl_port}",
+                            world_size=1, rank=0)
+    mesh1 = make_mesh(1)
+    if not isinstance(mesh1, DistExchange) or mesh1.device != dev:
+        raise AssertionError(f"expected the NCCL group's mesh, got {mesh1}")
+    say(f"[multi] NCCL group: backend {dist.get_backend()}, world size "
+        f"{dist.get_world_size()}, device {mesh1.device}")
+    cfg_s = cli.serving_config(20, BATCH, READ_LEN)
+    t = time.time()
+    kp = si.KmerPartitionedAligner(image, cfg_s, mesh1)
+    torch.cuda.synchronize()
+    km = kp.kmeta
+    lk_bytes = sum(a.numel() * 4 for a in kp.lookups[0])
+    say(f"[multi] kpart S=1 set-up (sharded lookup build, graph and lookup "
+        f"upload) {time.time() - t:.1f} s: {km.n_levels} levels, cap "
+        f"{km.cap} per destination, lookup bytes per shard {lk_bytes}, "
+        f"graph bytes {kp.dev.nbytes()}")
+
+    # (a) the new kernels against their plain versions, tolerance 0
+    codes = [torch.from_numpy(reads[b * BATCH:(b + 1) * BATCH].astype(
+        np.int32)).to(dev) for b in range(MODE_BATCHES)]
+    for b, c in enumerate(codes):
+        err["pack"] = max(err.get("pack", 0),
+                          max_abs_diff(kernels.pack_reads_cuda(c),
+                                       pack_reads_device(c)),
+                          max_abs_diff(kernels.pack_reads_cuda(c), packed[b]))
+    if err["pack"]:
+        raise AssertionError(f"pack kernel differs by up to {err['pack']}")
+    err["route"] = 0
+    P_ = READ_LEN - 20 + 1
+    for S in (1, 2, 4, 8):
+        # shard 0's rows of a batch, at the aligner's capacity for S shards
+        b_loc = BATCH // S
+        cap = (max(64, int(4.0 * b_loc * P_ / S)) + 7) // 8 * 8
+        for b in range(MODE_BATCHES if S == 1 else 1):
+            pk, ln = packed[b][:b_loc], lens[:b_loc]
+            got = kernels.route_cuda(pk, ln, 20, READ_LEN, S, cap)
+            want = si.route_queries(pk, ln, 20, READ_LEN, S, cap)
+            # any returned pairs do for the unscatter: the first key words
+            # and the sources themselves
+            back = torch.stack([got[0][:, :, 0], got[1]], -1).reshape(-1, 2)
+            src = got[1].reshape(-1)
+            err["route"] = max([err["route"]] + [
+                max_abs_diff(x, y) for x, y in zip(got, want)] + [
+                max_abs_diff(x, y) for x, y in zip(
+                    kernels.unscatter_cuda(back, src, b_loc, P_),
+                    si.unscatter_seeds(back, src, b_loc, P_))])
+            if err["route"]:
+                raise AssertionError(f"route kernels differ at S={S}, batch "
+                                     f"{b} by up to {err['route']}")
+    say(f"[multi] pack kernel == plain == host pack on {MODE_BATCHES} batches;"
+        f" route and unscatter kernels == plain at S = 1 ({MODE_BATCHES} "
+        "batches), 2, 4, 8 (shard 0's rows), tolerance 0")
+    shard = kp.lookups[0]
+    # K1 probing the whole MPHF gives the table the routed seeds must give
+    mcfg = dataclasses.replace(cfg_s, seed_index="mphf")
+    mdev_np, mmeta = device_index_from_image(image, mcfg)
+    mdev = upload(mdev_np, dev, serving=mmeta)
+    del mdev_np
+    rq, srcs, seeds_k = [], [], []
+    err["mphf_dynamic"] = err["next_hit"] = 0
+    for b in range(MODE_BATCHES):
+        q, src, _over, _drop = kernels.route_cuda(packed[b], lens, 20,
+                                                  READ_LEN, 1, km.cap)
+        q = q.reshape(km.cap, -1)
+        res = kernels.mphf_dynamic_cuda(q, shard, km.n_levels)
+        err["mphf_dynamic"] = max(err["mphf_dynamic"], max_abs_diff(
+            res, dynamic_verified_lookup(q, shard, km.n_levels)))
+        node, off = kernels.unscatter_cuda(res, src.reshape(-1), BATCH, P_)
+        nh = kernels.next_hit_cuda(node, off, lens, 20)
+        err["next_hit"] = max(
+            err["next_hit"],
+            max_abs_diff(nh, next_hit_table(node, off, lens, 20, P_)),
+            max_abs_diff(nh, kernels.seed_tables_cuda(mmeta, mdev,
+                                                      packed[b], lens)))
+        if err["mphf_dynamic"] or err["next_hit"]:
+            raise AssertionError(f"mphf_dynamic {err['mphf_dynamic']}, "
+                                 f"next_hit {err['next_hit']} on batch {b}")
+        rq.append(q)
+        srcs.append(src.reshape(-1))
+        seeds_k.append((node, off))
+    del mdev
+    torch.cuda.synchronize()
+    say(f"[multi] mphf_dynamic kernel == plain over {km.cap} queries per "
+        f"batch ({MODE_BATCHES} batches, S = 1); next_hit kernel == plain "
+        "== K1's table over the whole MPHF; tolerance 0")
+    bounds["pack"] = bound([pack_work(c) for c in codes])
+    bounds["route"] = bound([route_work(packed[b], lens, 20, READ_LEN, 1,
+                                        km.cap) for b in range(MODE_BATCHES)])
+    bounds["mphf_dynamic"] = bound([mphf_dynamic_work(q, shard, km.n_levels)
+                                    for q in rq])
+    bounds["next_hit"] = bound([next_hit_work(n) for n, _ in seeds_k])
+    backs = [kernels.mphf_dynamic_cuda(q, shard, km.n_levels) for q in rq]
+    time_pair("pack", lambda i: kernels.pack_reads_cuda(codes[i]), n_b,
+              "pack_kernel", MODE_BATCHES)
+    time_pair("pack_plain", lambda i: pack_reads_device(codes[i]), 4, None,
+              MODE_BATCHES)
+    time_pair("route_only", lambda i: kernels.route_cuda(
+        packed[i], lens, 20, READ_LEN, 1, km.cap), n_b, None, MODE_BATCHES,
+        held_only=True)
+    time_pair("unscatter", lambda i: kernels.unscatter_cuda(
+        backs[i], srcs[i], BATCH, P_), n_b, None, MODE_BATCHES,
+        held_only=True)
+    time_pair("route_only_plain", lambda i: si.route_queries(
+        packed[i], lens, 20, READ_LEN, 1, km.cap), 2, None, MODE_BATCHES)
+    time_pair("unscatter_plain", lambda i: si.unscatter_seeds(
+        backs[i], srcs[i], BATCH, P_), 2, None, MODE_BATCHES)
+    ms["route"] = ms["route_only"] + ms["unscatter"]
+    ms["route_plain"] = ms["route_only_plain"] + ms["unscatter_plain"]
+    time_pair("mphf_dynamic", lambda i: kernels.mphf_dynamic_cuda(
+        rq[i], shard, km.n_levels), n_b, "mphf_dynamic_kernel", MODE_BATCHES)
+    time_pair("mphf_dynamic_plain", lambda i: dynamic_verified_lookup(
+        rq[i], shard, km.n_levels), 2, None, MODE_BATCHES)
+    time_pair("next_hit", lambda i: kernels.next_hit_cuda(
+        *seeds_k[i], lens, 20), n_b, "next_hit_kernel", MODE_BATCHES)
+    time_pair("next_hit_plain", lambda i: next_hit_table(
+        *seeds_k[i], lens, 20, P_), 2, None, MODE_BATCHES)
+    del codes, rq, srcs, seeds_k, backs
+
+    # (b) the kpart serving aligner through the NCCL group: every batch of
+    # the file, bytes equal to the phase-6 cuckoo CLI output
+    srv = kp.serving_aligner()
+    with open(os.devnull, "wb") as sink:  # warm the host caches
+        srv.emit_fastq(fq_path, sink)
+    kernels.reset_launch_counts()
+    buf = io.BytesIO()
+    torch.cuda.synchronize()
+    t = time.time()
+    n_emit, _ = srv.emit_fastq(fq_path, buf)
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    launches["kpart"] = launch_counts()
+    need = ("pack", "route", "unscatter", "mphf_dynamic", "next_hit", "walk")
+    if min(launches["kpart"][k] for k in need) < 1:
+        raise AssertionError(f"a kernel never launched on the kpart path: "
+                             f"{launches['kpart']}")
+    if n_emit != n_reads or buf.getvalue() != outs["cuckoo"]:
+        raise AssertionError("kpart serving emit differs from the cuckoo CLI "
+                             "output")
+    say(f"[multi] kpart serving emit (S=1, NCCL) over {n_reads} reads: "
+        f"{dt:.2f} s, {n_reads / dt:.0f} reads/s; byte-identical to the "
+        f"phase-6 cuckoo CLI output; launches {launches['kpart']}")
+    srv.close()
+    del srv, kp, buf
+
+    # (c) four loopback shards on this card: MapResults == the replicated
+    # engine's (same config, lazy seeds off as kpart forces)
+    cfg_eager = dataclasses.replace(cfg_s, lazy_seeds=False)
+    t = time.time()
+    kp4 = si.KmerPartitionedAligner(image, cfg_eager,
+                                    make_mesh(4, loopback=True))
+    torch.cuda.synchronize()
+    say(f"[multi] kpart S=4 (loopback) set-up {time.time() - t:.1f} s: cap "
+        f"{kp4.kmeta.cap}, lookup bytes per shard "
+        f"{[sum(a.numel() * 4 for a in lk) for lk in kp4.lookups]}")
+    base = Pseudoaligner(image, cfg_eager, device="cuda")
+    for b in range(MODE_BATCHES):
+        rows = reads[b * BATCH:(b + 1) * BATCH]
+        got, _ = kp4.map_batch(rows, lens_np)
+        compare_results(got, base.map_batch_device(rows, lens_np),
+                        f"kpart S=4, batch {b}")
+    torch.cuda.synchronize()
+    base.close()
+    del kp4, base
+    say(f"[multi] kpart S=4 loopback == replicated engine, every MapResult "
+        f"field, on {MODE_BATCHES} batches")
+
+    # (d) the data-parallel engine on the bitset index through the NCCL
+    # group: counts (K9, all_reduce) == a host recount of K4's bitsets
+    sa = ShardedAligner(image12, cfg12, mesh1)
+    kernels.reset_launch_counts()
+    dp_res = []
+    for b in range(MODE_BATCHES):
+        res, counts = sa.map_batch(reads12[b * BATCH:(b + 1) * BATCH],
+                                   lens_np)
+        bits = res.ec_bits.view(torch.int32).cpu().numpy()
+        want = np.unpackbits(bits.view(np.uint8), axis=1,
+                             bitorder="little")[:, :n_tx].sum(0)
+        if not np.array_equal(counts.cpu().numpy(), want.astype(np.int32)):
+            raise AssertionError(f"ShardedAligner counts differ on batch {b}")
+        dp_res.append(res.ec_bits.view(torch.int32))
+    launches["sharded"] = launch_counts()
+    if min(launches["sharded"][k] for k in ("seed", "walk", "ec_bits",
+                                             "tx_counts")) < 1:
+        raise AssertionError(f"a kernel never launched on the data-parallel "
+                             f"path: {launches['sharded']}")
+    err["tx_counts"] = max(max_abs_diff(kernels.tx_counts_cuda(x, n_tx),
+                                        tx_compat_counts(x, n_tx))
+                           for x in dp_res)
+    if err["tx_counts"]:
+        raise AssertionError("tx_counts kernel differs from its plain version")
+    say(f"[multi] ShardedAligner (NCCL, bitset index) counts == host recount "
+        f"of the bitsets on {MODE_BATCHES} batches; tx_counts kernel == plain,"
+        f" tolerance 0; launches {launches['sharded']}")
+    bounds["tx_counts"] = bound([tx_counts_work(x, n_tx) for x in dp_res])
+    time_pair("tx_counts", lambda i: kernels.tx_counts_cuda(dp_res[i], n_tx),
+              n_b, "tx_counts_kernel", MODE_BATCHES)
+    time_pair("tx_counts_plain", lambda i: tx_compat_counts(dp_res[i], n_tx),
+              2, None, MODE_BATCHES)
+    del sa, dp_res
+
+    # (e) the multi-host map at world size 1: part file == the record path's
+    # records, merged counts == their counts
+    mdir = os.path.join(work, "multihost")
+    t = time.time()
+    merged = map_fastq_multihost(image12, cli.serving_config(
+        20, BATCH, READ_LEN), fq12, mdir)
+    dt = time.time() - t
+    with open(os.path.join(mdir, "part-0.txt"), "rb") as f:
+        part = f.read()
+    if part != b"".join(r + b"\n" for r in recs):
+        raise AssertionError("map_fastq_multihost part differs from the "
+                             "map_fastq records")
+    if not np.array_equal(merged, host_counts(recs, n_tx)):
+        raise AssertionError("map_fastq_multihost merged counts differ")
+    say(f"[multi] map_fastq_multihost (NCCL, world 1) over {n12} reads: "
+        f"{dt:.2f} s; part file == map_fastq records, merged counts == their "
+        f"counts ({int(merged.sum())} in all)")
+
+    # (f) the dry run
+    dry = dryrun_multichip(1)
+    dist.destroy_process_group()
+    say(f"[multi] dryrun_multichip(1): {dry}")
+
     def entry(name, key, source, replaces, mode, which):
         b_ms, b_by = bounds[key]
         return {"name": name, "route": "cuda",
@@ -1193,6 +1539,16 @@ def main(argv=None) -> int:
               "bitset", "ec_bits"),
         entry("unpack_index", "unpack", "unpack.cu",
               "ops/map_kernel.py:1504", "cuckoo", "unpack"),
+        entry("pack_reads", "pack", "pack.cu", "ops/map_kernel.py:704",
+              "kpart", "pack"),
+        entry("route", "route", "route.cu", "parallel/sharded_index.py:262",
+              "kpart", "route"),
+        entry("mphf_dynamic", "mphf_dynamic", "mphfdyn.cu",
+              "ops/mphf_lookup.py:58", "kpart", "mphf_dynamic"),
+        entry("tx_counts", "tx_counts", "txcounts.cu", "parallel/mesh.py:57",
+              "sharded", "tx_counts"),
+        entry("next_hit", "next_hit", "seed.cu", "ops/map_kernel.py:583",
+              "kpart", "next_hit"),
     ]}
     say(f"total {time.time() - t_start:.1f} s")
     say(json.dumps(kernels_line))

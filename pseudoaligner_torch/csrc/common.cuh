@@ -1,6 +1,7 @@
-// Shared device code of the mapping kernels (seed.cu, walk.cu, stats.cu):
-// launch parameters, 2-bit base access, the k-mer hash and the three seed
-// index probes (cuckoo, bucket1, MPHF with a stored-key verify).
+// Shared device code of the mapping kernels (seed.cu, walk.cu, stats.cu,
+// route.cu, mphfdyn.cu): launch parameters, 2-bit base access, the k-mer
+// hash, the three seed index probes (cuckoo, bucket1, MPHF with a stored-key
+// verify) and the backward pass of the next-hit table.
 //
 // Layouts (see pseudoaligner_torch/ops/map_kernel.py):
 //   packed      [B, nw] uint32, base i of a read at bits 2*(i%16) of word i/16
@@ -279,6 +280,37 @@ __device__ __forceinline__ void seed_probe(const Params& p, const Levels& lv,
     mphf_verified_probe(p, lv, ix, w, node, off);
   else
     cuckoo_probe(p, ix.cuckoo, ix.vals, w, node, off);
+}
+
+// One (read, residue r) row of the stride-3 next-hit table (ops/map_kernel.py
+// next_hit_table): walks the positions r, r+3, ... backwards and writes
+// nh3_row[pos] = (q, node, off) of the nearest seed q >= pos on the grid, or
+// (P, -1, -1) when there is none.  seed(pos, &node, &off) is asked only for
+// positions up to last_valid (len - k), and for none when `ask` is false; a
+// seed counts when its node is >= 0.  K1's seed pass (which probes) and its
+// next_hit entry (which reads routed seed tables) both call this, so the
+// table has one definition.
+template <class Seed>
+__device__ __forceinline__ void next_hit_residue(int P, int r, int last_valid,
+                                                 bool ask, Seed seed,
+                                                 int32_t* nh3_row) {
+  int q = P, qn = -1, qo = -1;
+  const int top = r + 3 * ((P - 1 - r) / 3);
+  for (int pos = top; pos >= r; pos -= 3) {
+    if (ask && pos <= last_valid) {
+      int node, off;
+      seed(pos, &node, &off);
+      if (node >= 0) {
+        q = pos;
+        qn = node;
+        qo = off;
+      }
+    }
+    int32_t* out = nh3_row + (size_t)pos * 3;
+    out[0] = q;
+    out[1] = qn;
+    out[2] = qo;
+  }
 }
 
 }  // namespace pa

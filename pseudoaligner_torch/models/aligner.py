@@ -617,6 +617,22 @@ class Pseudoaligner:
 
         ids_concat, id_offs = _concat_ids_for_emit(batch)
 
+        # per-transcript count deltas (the multi-process merge,
+        # parallel/multihost.py): each record's classes count once, groups
+        # sig_counts[g] per transcript of their list, overflow rows 1 each;
+        # the ordered finish checkpoints them with the write offset
+        tx_sink = state.get("tx_sink")
+        if tx_sink is not None:
+            gcounts = np.bincount(inv, minlength=len(none_mask))
+            w = np.repeat(
+                np.where(none_mask, 0, gcounts).astype(np.int64),
+                np.diff(sig_start),
+            )
+            tx_sink.append((sig_flat[: int(sig_start[-1])], w))
+            if len(ovr_ids):
+                tx_sink.append(
+                    (ovr_ids, np.ones(len(ovr_ids), dtype=np.int64)))
+
         if tcc is not None:
             tcc.n_reads += n
             sig_counts = np.bincount(inv, minlength=len(none_mask))
@@ -638,31 +654,46 @@ class Pseudoaligner:
         return data
 
     def emit_fastq(self, path: str, out, skip_reads: int = 0, tcc=None,
-                   progress_cb=None, ticker=None):
+                   progress_cb=None, batch_iter=None, count_cb=None,
+                   ticker=None):
         """Stream a FASTQ and write reference-style records to `out` (a
         binary stream) via the native emitter.  Batches holding segmented
         long reads take the record path.  Returns (n_reads, n_flagged).
 
+        `batch_iter` replaces the FastqReader of `path` with an iterator of
+        ReadBatches (the per-process batch stride of
+        parallel/multihost.py); `path` and `skip_reads` are then unused.
+        `count_cb(n_batch_reads, deltas)` fires at each batch's ordered
+        finish, after its records reached `out`: `deltas` is a list of
+        (tx_ids, weights), that batch's per-transcript counts, so a
+        checkpoint taken in the callback matches the write offset.
         `ticker(n_reads, n_flagged)` fires after each batch's ordered
         finish (see cli.make_ticker)."""
-        reader = FastqReader(
-            path,
-            batch_size=self.config.batch_size,
-            max_len=self.config.max_read_len,
-            segment_long=True,
-            window_overlap=self.config.k - 1,
-            skip_reads=skip_reads,
-        )
+        if batch_iter is None:
+            reader = FastqReader(
+                path,
+                batch_size=self.config.batch_size,
+                max_len=self.config.max_read_len,
+                segment_long=True,
+                window_overlap=self.config.k - 1,
+                skip_reads=skip_reads,
+            )
+        else:
+            reader = batch_iter
         n_reads = 0
         n_flagged = 0
         any_batch = False
         merge_state = None  # incremental window-merge carry across batches
+        fb_sink: list = []  # record-path count deltas (fallback batches)
 
         def put_record(rec):
             nonlocal n_reads, n_flagged
             out.write(rec.format_reference_style().encode() + b"\n")
             if tcc is not None:
                 tcc.add(rec.eq_class, mapped=rec.coverage > 0)
+            if count_cb is not None and rec.eq_class:
+                fb_sink.append((np.asarray(rec.eq_class, dtype=np.int64),
+                                np.ones(len(rec.eq_class), dtype=np.int64)))
             n_reads += 1
             n_flagged += rec.flag
 
@@ -673,16 +704,19 @@ class Pseudoaligner:
         # stage first, preserving output order.
         def render(st_n):  # ordered single-worker pool (pipeline.py)
             st, n = st_n
-            return self.emit_finish(self.emit_prepare_group(st)), n
+            st = self.emit_prepare_group(st)
+            return self.emit_finish(st), n, st.get("tx_sink")
 
         def finish(data_n):
             nonlocal n_reads, n_flagged
-            data, n = data_n
+            data, n, sink = data_n
             out.write(data)
             n_reads += n
             n_flagged += int(data.startswith(b"(true")) + int(
                 data.count(b"\n(true")
             )
+            if count_cb is not None:
+                count_cb(n, sink or [])
             if ticker is not None:
                 ticker(n_reads, n_flagged)
 
@@ -704,9 +738,13 @@ class Pseudoaligner:
                      or int(grp[n - 1]) != next_first_group)
             )
             if simple:
-                return (self.emit_prepare(res, batch, tcc=tcc,
-                                          defer_group=True), n)
+                st = self.emit_prepare(res, batch, tcc=tcc,
+                                       defer_group=True)
+                if count_cb is not None:
+                    st["tx_sink"] = []
+                return (st, n)
             pipe.drain_prepared()
+            n_before = n_reads
             for rec, g, end in self._batch_rows(res, batch):
                 merge_state, done = self._merge_push(merge_state, rec, g, end)
                 if done is not None:
@@ -719,6 +757,12 @@ class Pseudoaligner:
                         self._finalize_merged(merge_state[1], merge_state[2])
                     )
                     merge_state = None
+            if count_cb is not None:
+                # record-path batches checkpoint per batch too (a window
+                # merge carried past the boundary counts with the batch
+                # that finalizes it)
+                count_cb(n_reads - n_before, list(fb_sink))
+                fb_sink.clear()
             if ticker is not None:
                 ticker(n_reads, n_flagged)
             return None

@@ -1,5 +1,7 @@
-"""Build, bind and launch the CUDA kernels (csrc/seed.cu K1, csrc/walk.cu
-K2, csrc/stats.cu K3, csrc/ecbits.cu K4, csrc/unpack.cu K5).
+"""Build, bind and launch the CUDA kernels: csrc/seed.cu K1 (and its
+next_hit entry), csrc/walk.cu K2, csrc/stats.cu K3, csrc/ecbits.cu K4,
+csrc/unpack.cu K5, csrc/pack.cu K6, csrc/route.cu K7 (route and
+unscatter), csrc/mphfdyn.cu K8 and csrc/txcounts.cu K9.
 
 The sources compile with nvcc for sm_90a, one nvcc per source, all
 started together, and link into one shared library with a plain C
@@ -58,6 +60,7 @@ build_log = ""  # ptxas's report of the last build in this process
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 def _nvcc() -> str:
@@ -126,8 +129,19 @@ def _load():
             lib.pa_ec_bits.restype = _I
             lib.pa_ec_bits.argtypes = [_I, _I, _I, _I] + [_P] * 7
             lib.pa_unpack_index.restype = _I
-            lib.pa_unpack_index.argtypes = ([_I, ctypes.c_longlong, _I, _I,
-                                             _I] + [_P] * 7)
+            lib.pa_unpack_index.argtypes = [_I, _L, _I, _I, _I] + [_P] * 7
+            lib.pa_next_hit.restype = _I
+            lib.pa_next_hit.argtypes = [_I] * 4 + [_P] * 5
+            lib.pa_pack_reads.restype = _I
+            lib.pa_pack_reads.argtypes = [_I] * 3 + [_P] * 3
+            lib.pa_route.restype = _I
+            lib.pa_route.argtypes = [_I] * 7 + [_P] * 9
+            lib.pa_unscatter.restype = _I
+            lib.pa_unscatter.argtypes = [_I, _L, _L] + [_P] * 5
+            lib.pa_mphf_dynamic.restype = _I
+            lib.pa_mphf_dynamic.argtypes = [_I, _L, _I, _I] + [_P] * 11
+            lib.pa_tx_counts.restype = _I
+            lib.pa_tx_counts.argtypes = [_I] * 4 + [_P] * 3
             lib.pa_error_string.restype = ctypes.c_char_p
             lib.pa_error_string.argtypes = [_I]
             _lib = lib
@@ -202,13 +216,17 @@ def _check_seed_index(meta: MapMeta, idx: DeviceIndex, dev) -> None:
                          f"{meta.cuckoo_mask}")
 
 
-def _check_inputs(meta: MapMeta, idx: DeviceIndex, packed, lens):
+def _check_inputs(meta: MapMeta, idx: DeviceIndex, packed, lens,
+                  probes: bool = True):
+    """The batch, the graph arrays and, when the kernel `probes` the seed
+    index, that index's arrays."""
     B, dev = _check_batch(meta, packed, lens)
     _check("node_row", idx.node_row, torch.int32,
            (idx.node_row.shape[0], 12), dev)
     _check("pool_rows", idx.pool_rows, torch.int32,
            (idx.pool_rows.shape[0], 8), dev)
-    _check_seed_index(meta, idx, dev)
+    if probes:
+        _check_seed_index(meta, idx, dev)
     return B, dev
 
 
@@ -271,7 +289,9 @@ def walk_cuda(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
     if DC > MAX_DISTINCT_CAP or M < 1:
         raise ValueError(f"distinct_cap {DC} > {MAX_DISTINCT_CAP} or "
                          f"max_nodes {M} < 1")
-    B, dev = _check_inputs(meta, idx, packed, lens)
+    # the walk probes only in lazy seeks: without them it reads no seed
+    # index (the k-mer-partitioned graph carries a placeholder one)
+    B, dev = _check_inputs(meta, idx, packed, lens, probes=meta.lazy_seeds)
     _check("nh3", nh3, torch.int32, (B, meta.n_positions, 3), dev)
     lib = _load()
     buf = torch.empty((B, M, 2), dtype=torch.int32, device=dev)
@@ -404,9 +424,182 @@ def unpack_index_cuda(packed: dict, cfg: PackCfg):
 unpack_index_cuda.launches = 0
 
 
+def next_hit_cuda(seed_node: torch.Tensor, seed_off: torch.Tensor,
+                  lens: torch.Tensor, k: int) -> torch.Tensor:
+    """K1's next_hit entry: seed tables seed_node / seed_off [B, P] int32
+    (-1 where a position has no seed), lens [B] int32 -> nh3 [B, P, 3]
+    int32, as map_kernel.next_hit_table (see csrc/seed.cu)."""
+    if not seed_node.is_cuda:
+        raise ValueError("the CUDA kernels take CUDA tensors")
+    dev = seed_node.device
+    B, P = seed_node.shape
+    _check("seed_node", seed_node, torch.int32, (B, P), dev)
+    _check("seed_off", seed_off, torch.int32, (B, P), dev)
+    _check("lens", lens, torch.int32, (B,), dev)
+    lib = _load()
+    nh3 = torch.empty((B, P, 3), dtype=torch.int32, device=dev)
+    rc = lib.pa_next_hit(dev.index, B, P, k, seed_node.data_ptr(),
+                         seed_off.data_ptr(), lens.data_ptr(), nh3.data_ptr(),
+                         _stream(dev))
+    _raise_on(lib, rc, "next_hit kernel")
+    next_hit_cuda.launches += 1
+    return nh3
+
+
+next_hit_cuda.launches = 0
+
+
+def pack_reads_cuda(codes: torch.Tensor) -> torch.Tensor:
+    """K6: base codes [B, L] int32 -> packed [B, ceil(L/16)] int32 (uint32
+    bit patterns), as map_kernel.pack_reads_device (see csrc/pack.cu)."""
+    if not codes.is_cuda:
+        raise ValueError("the CUDA kernels take CUDA tensors")
+    dev = codes.device
+    B, L = codes.shape
+    _check("codes", codes, torch.int32, (B, L), dev)
+    lib = _load()
+    packed = torch.empty((B, (L + 15) // 16), dtype=torch.int32, device=dev)
+    rc = lib.pa_pack_reads(dev.index, B, L, codes.data_ptr(),
+                           packed.data_ptr(), _stream(dev))
+    _raise_on(lib, rc, "pack kernel")
+    pack_reads_cuda.launches += 1
+    return packed
+
+
+pack_reads_cuda.launches = 0
+
+MAX_SHARDS = 64  # route.cu's per-block owner counters
+ROUTE_BLOCK = 256  # route.cu's positions per block
+
+
+def route_cuda(packed: torch.Tensor, lens: torch.Tensor, k: int,
+               read_len: int, n_shards: int, cap: int):
+    """K7, route: packed reads [B, ceil(L/16)] int32, lens [B] int32 ->
+    (send_q [S, CAP, W] int32, send_src [S, CAP] int32, overflow [] int32,
+    dropped [B] bool), as sharded_index.route_queries (see
+    csrc/route.cu)."""
+    if not packed.is_cuda:
+        raise ValueError("the CUDA kernels take CUDA tensors")
+    dev = packed.device
+    B = packed.shape[0]
+    P = read_len - k + 1
+    S, W = n_shards, (2 * k + 31) // 32
+    if P < 1 or not 1 <= S <= MAX_SHARDS or S & (S - 1) or cap < 1:
+        raise ValueError(f"positions {P}, shards {S} (a power of two up to "
+                         f"{MAX_SHARDS}), capacity {cap}")
+    if B * P >= 2**31:
+        raise ValueError(f"{B * P} positions exceed int32 sources")
+    _check("packed", packed, torch.int32, (B, (read_len + 15) // 16), dev)
+    _check("lens", lens, torch.int32, (B,), dev)
+    lib = _load()
+    n_blocks = -(-B * P // ROUTE_BLOCK)
+    counts = torch.empty(n_blocks * S, dtype=torch.int32, device=dev)
+    offsets = torch.empty_like(counts)
+    send_q = torch.empty((S, cap, W), dtype=torch.int32, device=dev)
+    send_src = torch.empty((S, cap), dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    dropped = torch.empty(B, dtype=torch.bool, device=dev)
+    rc = lib.pa_route(dev.index, B, packed.shape[1], k, P, S, cap,
+                      packed.data_ptr(), lens.data_ptr(), counts.data_ptr(),
+                      offsets.data_ptr(), send_q.data_ptr(),
+                      send_src.data_ptr(), overflow.data_ptr(),
+                      dropped.data_ptr(), _stream(dev))
+    _raise_on(lib, rc, "route kernels")
+    route_cuda.launches += 1
+    return send_q, send_src, overflow, dropped
+
+
+route_cuda.launches = 0
+
+
+def unscatter_cuda(back: torch.Tensor, src: torch.Tensor, B: int, P: int):
+    """K7, unscatter: returned (node, offset) pairs back [N, 2] int32 and
+    their flat sources src [N] int32 (-1 for unused slots) -> seed_node,
+    seed_off [B, P] int32, -1 where nothing returned, as
+    sharded_index.unscatter_seeds (see csrc/route.cu)."""
+    if not back.is_cuda:
+        raise ValueError("the CUDA kernels take CUDA tensors")
+    dev, N = back.device, back.shape[0]
+    _check("back", back, torch.int32, (N, 2), dev)
+    _check("src", src, torch.int32, (N,), dev)
+    lib = _load()
+    node = torch.empty((B, P), dtype=torch.int32, device=dev)
+    off = torch.empty_like(node)
+    rc = lib.pa_unscatter(dev.index, N, B * P, back.data_ptr(),
+                          src.data_ptr(), node.data_ptr(), off.data_ptr(),
+                          _stream(dev))
+    _raise_on(lib, rc, "unscatter kernel")
+    unscatter_cuda.launches += 1
+    return node, off
+
+
+unscatter_cuda.launches = 0
+
+
+def mphf_dynamic_cuda(queries: torch.Tensor, lookup,
+                      n_levels: int) -> torch.Tensor:
+    """K8: queries [N, W] int32 (uint32 bit patterns) against one shard's
+    sub-index `lookup` (a ShardedLookup of that shard's tensors: bits and
+    ranks [Wmax], seeds, masks, word_offsets, key_offsets [n_levels],
+    keys [K, W], values [K, 2], all int32) -> [N, 2] int32 (node, offset),
+    -1 on a miss, as mphf_lookup.dynamic_verified_lookup (see
+    csrc/mphfdyn.cu)."""
+    if not queries.is_cuda:
+        raise ValueError("the CUDA kernels take CUDA tensors")
+    dev = queries.device
+    N, W = queries.shape
+    if not 0 < n_levels <= MAX_LEVELS:
+        raise ValueError(f"{n_levels} levels, expected 1 to {MAX_LEVELS}")
+    _check("queries", queries, torch.int32, (N, W), dev)
+    nb, K = lookup.bits.shape[0], lookup.keys.shape[0]
+    for name, shape in (("bits", (nb,)), ("ranks", (nb,)),
+                        ("seeds", (n_levels,)), ("masks", (n_levels,)),
+                        ("word_offsets", (n_levels,)),
+                        ("key_offsets", (n_levels,)), ("keys", (K, W)),
+                        ("values", (K, 2))):
+        _check(name, getattr(lookup, name), torch.int32, shape, dev)
+    lib = _load()
+    out = torch.empty((N, 2), dtype=torch.int32, device=dev)
+    rc = lib.pa_mphf_dynamic(
+        dev.index, N, W, n_levels, queries.data_ptr(),
+        *(getattr(lookup, f).data_ptr() for f in (
+            "bits", "ranks", "seeds", "masks", "word_offsets", "key_offsets",
+            "keys", "values")), out.data_ptr(), _stream(dev))
+    _raise_on(lib, rc, "mphf_dynamic kernel")
+    mphf_dynamic_cuda.launches += 1
+    return out
+
+
+mphf_dynamic_cuda.launches = 0
+
+
+def tx_counts_cuda(ec_bits: torch.Tensor, n_tx: int) -> torch.Tensor:
+    """K9: EC bitsets [B, TW] int32 (uint32 bit patterns) -> counts [n_tx]
+    int32, counts[t] = reads with bit t set, as mesh.tx_compat_counts (see
+    csrc/txcounts.cu)."""
+    if not ec_bits.is_cuda:
+        raise ValueError("the CUDA kernels take CUDA tensors")
+    dev = ec_bits.device
+    B, TW = ec_bits.shape
+    if not 0 <= n_tx <= 32 * TW:
+        raise ValueError(f"n_tx {n_tx} does not fit {TW} words")
+    _check("ec_bits", ec_bits, torch.int32, (B, TW), dev)
+    lib = _load()
+    counts = torch.empty(n_tx, dtype=torch.int32, device=dev)
+    rc = lib.pa_tx_counts(dev.index, B, TW, n_tx, ec_bits.data_ptr(),
+                          counts.data_ptr(), _stream(dev))
+    _raise_on(lib, rc, "tx_counts kernel")
+    tx_counts_cuda.launches += 1
+    return counts
+
+
+tx_counts_cuda.launches = 0
+
+WRAPPERS = (seed_tables_cuda, walk_cuda, stats_cuda, ec_bits_cuda,
+            unpack_index_cuda, next_hit_cuda, pack_reads_cuda, route_cuda,
+            unscatter_cuda, mphf_dynamic_cuda, tx_counts_cuda)
+
+
 def reset_launch_counts() -> None:
-    seed_tables_cuda.launches = 0
-    walk_cuda.launches = 0
-    stats_cuda.launches = 0
-    ec_bits_cuda.launches = 0
-    unpack_index_cuda.launches = 0
+    for fn in WRAPPERS:
+        fn.launches = 0

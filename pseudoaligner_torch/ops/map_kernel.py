@@ -26,7 +26,11 @@ The seed index (`MapMeta.seed_index`, `seed_probe`) is one of:
 
 `map_batch_packed` runs the CUDA kernels (ops/kernels.py, csrc/seed.cu,
 csrc/walk.cu and csrc/ecbits.cu) for CUDA tensors and the plain PyTorch
-passes below for CPU tensors.  The plain passes are batched, masked
+passes below for CPU tensors.  `map_batch` and `map_batch_with_seeds`
+take unpacked base codes and pack them on the device first
+(`pack_reads_device`, csrc/pack.cu on a GPU); the second walks from a given
+next-hit table, as the k-mer-partitioned step (parallel/sharded_index.py)
+builds it from routed seed tables.  The plain passes are batched, masked
 tensor code written from the reference's semantics, independent of the
 CUDA sources; tests hold them equal to the JAX reference and
 chip_smoke.py holds the kernels equal to them on the card.
@@ -202,6 +206,14 @@ def pack_reads_host(codes: np.ndarray) -> np.ndarray:
     shifts = (np.arange(16, dtype=np.uint32) * 2)[None, None, :]
     return np.bitwise_or.reduce(padded.reshape(B, nw, 16) << shifts,
                                 axis=2).astype(np.uint32)
+
+
+def lens_link_dtype(read_len: int):
+    """Narrowest numpy dtype that holds read lengths up to `read_len`: the
+    lens vector's type on the host-to-device link (the step casts it to
+    int32 on the device)."""
+    return (np.uint8 if read_len <= 255 else
+            np.uint16 if read_len <= 65535 else np.int32)
 
 
 def _pack_pool_rows(seq_pool: np.ndarray, pad_front: int,
@@ -542,6 +554,21 @@ def unpack_index(packed: dict, cfg: PackCfg):
 # ---------------------------------------------------------------------------
 # the seed pass (plain PyTorch)
 # ---------------------------------------------------------------------------
+
+
+def pack_reads_device(reads: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch pack: [B, L] integer base codes -> [B, ceil(L/16)]
+    int32 (uint32 bit patterns), 16 bases per word, base i at bits
+    2*(i % 16).  Codes are not masked to two bits, as in the reference."""
+    B, L = reads.shape
+    nw = (L + 15) // 16
+    r = torch.zeros((B, nw * 16), dtype=torch.int64, device=reads.device)
+    r[:, :L] = reads.to(torch.int64) & MASK32
+    shifts = torch.arange(16, dtype=torch.int64, device=reads.device) * 2
+    acc = torch.zeros((B, nw), dtype=torch.int64, device=reads.device)
+    for i, part in enumerate((r.reshape(B, nw, 16) << shifts).unbind(2)):
+        acc |= part
+    return _as_i32(acc & MASK32)
 
 
 def unpack_reads(packed: torch.Tensor, L: int) -> torch.Tensor:
@@ -927,16 +954,56 @@ def map_batch_packed(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
     (K4); a kernel that cannot build or launch raises.  CPU tensors go
     through the plain PyTorch passes."""
     if packed.is_cuda:
-        from .kernels import ec_bits_cuda, seed_tables_cuda, walk_cuda
+        from .kernels import seed_tables_cuda
 
         nh3 = seed_tables_cuda(meta, idx, packed, lens)
+    else:
+        nh3 = seed_tables(meta, idx, packed, lens)
+    return walk_from_seeds(meta, idx, packed, lens, nh3)
+
+
+def walk_from_seeds(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
+                    lens: torch.Tensor, nh3: torch.Tensor) -> MapResult:
+    """The walk and, in the full-output shape with meta.tx_words > 0, the
+    bitset EC intersection, from a next-hit table: K2 and K4 for CUDA
+    tensors, the plain passes for CPU tensors."""
+    if packed.is_cuda:
+        from .kernels import ec_bits_cuda, walk_cuda
+
         res = walk_cuda(meta, idx, packed, lens, nh3)
         intersect = ec_bits_cuda
     else:
-        res = walk(meta, idx, packed, lens,
-                   seed_tables(meta, idx, packed, lens))
+        res = walk(meta, idx, packed, lens, nh3)
         intersect = ec_bitset_intersect
     if meta.distinct_cap == 0 and meta.tx_words > 0:
         bits = intersect(meta, idx, res.nodes, res.n_nodes, res.mapped)
         res = res._replace(ec_bits=bits.view(torch.uint32))
     return res
+
+
+def pack_reads(reads: torch.Tensor) -> torch.Tensor:
+    """[B, L] int32 base codes -> packed reads: the pack kernel (K6) for a
+    CUDA tensor, pack_reads_device for a CPU one."""
+    if reads.is_cuda:
+        from .kernels import pack_reads_cuda
+
+        return pack_reads_cuda(reads)
+    return pack_reads_device(reads)
+
+
+def map_batch(meta: MapMeta, idx: DeviceIndex, reads: torch.Tensor,
+              lens: torch.Tensor) -> MapResult:
+    """Map a [B, L] batch of unpacked base codes: packed on the device
+    (K6 on a GPU), then map_batch_packed."""
+    packed = pack_reads(reads.to(torch.int32).contiguous())
+    return map_batch_packed(meta, idx, packed, lens.to(torch.int32))
+
+
+def map_batch_with_seeds(meta: MapMeta, idx: DeviceIndex,
+                         reads: torch.Tensor, lens: torch.Tensor,
+                         nh3: torch.Tensor) -> MapResult:
+    """The walk and EC stages from a given next-hit table (the
+    k-mer-partitioned step's; nh3 from next_hit_table) on [B, L] unpacked
+    base codes, packed on the device first."""
+    packed = pack_reads(reads.to(torch.int32).contiguous())
+    return walk_from_seeds(meta, idx, packed, lens.to(torch.int32), nh3)

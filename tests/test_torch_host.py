@@ -42,10 +42,11 @@ MPHF_FIELDS = ("seeds", "masks", "word_offsets", "key_offsets", "bits",
 
 def test_port_runs_without_the_reference(tmp_path):
     """In a process where pseudoaligner_tpu and jax cannot be imported,
-    chip_smoke and the port import, and the port's CLI builds an index,
-    maps on the CPU under the cuckoo and MPHF seed indexes, maps pairs
-    (checked against the golden pair rule) and counts cells, on
-    chip_smoke's own recipes."""
+    chip_smoke and the port (its multi-device layer too) import, and the
+    port's CLI builds an index, maps on the CPU under the cuckoo and MPHF
+    seed indexes, maps pairs (checked against the golden pair rule) and
+    counts cells, on chip_smoke's own recipes; the multi-device dry run
+    runs on two loopback shards."""
     code = textwrap.dedent(f"""
         import io, sys
 
@@ -62,6 +63,8 @@ def test_port_runs_without_the_reference(tmp_path):
         from pseudoaligner_torch import cli, golden
         from pseudoaligner_torch.config import AlignerConfig
         from pseudoaligner_torch.ops import kernels, map_kernel, stats
+        from pseudoaligner_torch.parallel import (
+            comm, dryrun, mesh, multihost, sharded_index)
 
         d = {str(tmp_path)!r}
         seqs, names, gmap = chip_smoke.scale_seqs(30000, seed=5)
@@ -136,6 +139,10 @@ def test_port_runs_without_the_reference(tmp_path):
         pargs, pcfg = map_kernel.pack_serving_args(dev, meta)
         assert chip_smoke.unpack_work(pargs, pcfg) == (27 * pcfg.S,
                                                        15 * pcfg.S)
+
+        # the multi-device layer: the dry run over two loopback shards
+        out = dryrun.dryrun_multichip(2, loopback=True, device="cpu")
+        assert out["kpart_mapped"] == out["mapped"] > 0
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pseudoaligner_tpu")]
         assert not bad, bad

@@ -1,6 +1,7 @@
-"""The CUDA kernels (K1 seed, K2 walk, K3 stats, K4 bitset EC
-intersection, K5 packed-upload unpack) against their plain PyTorch
-versions, under each seed index (cuckoo, bucket1, MPHF).
+"""The CUDA kernels (K1 seed and its next_hit entry, K2 walk, K3 stats,
+K4 bitset EC intersection, K5 packed-upload unpack, K6 read pack, K7 route
+and unscatter, K8 dynamic MPHF probe, K9 transcript counts) against their
+plain PyTorch versions, under each seed index (cuckoo, bucket1, MPHF).
 
 The card tests carry the `gpu` marker and skip without a CUDA device;
 chip_smoke.py runs the same comparison at full size on the card.  The CPU
@@ -324,3 +325,98 @@ def test_launch_params_order():
     with pytest.raises(ValueError, match="distinct_cap"):
         kernels.walk_cuda(dataclasses.replace(meta, distinct_cap=65),
                           None, torch.zeros(1), None, None)
+
+
+def _route_case(S, cap_scale, device):
+    """A batch of the _data reads (short and empty rows included), its
+    packed words and lens on `device`, one shard's lookup of a k-mer
+    partition of the index at S shards, and the send capacity."""
+    from pseudoaligner_torch.parallel import sharded_index as si
+
+    image, reads = _data(np.random.default_rng(7), 20, 64)
+    codes = np.zeros((len(reads) + 5, 64), np.int32)
+    lens = np.zeros(len(codes), np.int32)
+    for j, w in enumerate(reads):
+        codes[j, : len(w)] = w
+        lens[j] = len(w)
+    lookup, n_levels = si.build_sharded_lookup(image, S)
+    P = 64 - 20 + 1
+    cap = (max(8, int(cap_scale * len(codes) * P / S / S)) + 7) // 8 * 8
+    return (torch.from_numpy(codes).to(device),
+            torch.from_numpy(lens).to(device), lookup, n_levels, cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+@pytest.mark.parametrize("cap_scale", [4.0, 0.3])
+def test_multi_device_kernels_match_plain_on_cuda(S, cap_scale):
+    """K6 pack, K7 route and unscatter (with and without overflow), K8
+    dynamic MPHF probe on every shard, K1's next_hit entry and K9 counts
+    against their plain versions on the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pseudoaligner_torch.ops.mphf_lookup import dynamic_verified_lookup
+    from pseudoaligner_torch.parallel import mesh, sharded_index as si
+
+    codes, lens, lookup, n_levels, cap = _route_case(S, cap_scale, "cuda")
+    packed = kernels.pack_reads_cuda(codes)
+    assert torch.equal(packed, mk.pack_reads_device(codes))
+    got = kernels.route_cuda(packed, lens, 20, 64, S, cap)
+    want = si.route_queries(packed, lens, 20, 64, S, cap)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    if cap_scale < 1:
+        assert int(got[2]) > 0 and got[3].any()
+    for s in range(S):
+        shard = si.upload_lookup(lookup, s, "cuda")
+        q = got[0].reshape(S * cap, -1)
+        res = kernels.mphf_dynamic_cuda(q, shard, n_levels)
+        assert torch.equal(res, dynamic_verified_lookup(q, shard, n_levels))
+    src = got[1].reshape(-1)
+    B = codes.shape[0]
+    node, off = kernels.unscatter_cuda(res, src, B, 45)
+    pnode, poff = si.unscatter_seeds(res, src, B, 45)
+    assert torch.equal(node, pnode) and torch.equal(off, poff)
+    nh3 = kernels.next_hit_cuda(node, off, lens, 20)
+    assert torch.equal(nh3, mk.next_hit_table(node, off, lens, 20, 45))
+    bits = torch.randint(-2**31, 2**31, (3000, 11), dtype=torch.int32,
+                         device="cuda")
+    bits[::3] = 0
+    for n_tx in (1, 330, 352):
+        assert torch.equal(kernels.tx_counts_cuda(bits, n_tx),
+                           mesh.tx_compat_counts(bits, n_tx))
+    torch.cuda.synchronize()
+
+
+def test_cpu_tensors_take_the_plain_passes_multi_device():
+    """The multi-device steps take the plain versions for CPU tensors and
+    leave the launch counters alone; the new wrappers refuse CPU
+    tensors."""
+    from pseudoaligner_torch.parallel import sharded_index as si
+    from pseudoaligner_torch.parallel.mesh import make_mesh
+
+    codes, lens, lookup, n_levels, cap = _route_case(2, 4.0, "cpu")
+    image, _ = _data(np.random.default_rng(7), 20, 64)
+    before = [fn.launches for fn in kernels.WRAPPERS]
+    kp = si.KmerPartitionedAligner(
+        image, AlignerConfig(k=20, batch_size=codes.shape[0] - 1,
+                             max_read_len=64, distinct_cap=0),
+        make_mesh(2, loopback=True, device="cpu"))
+    res, counts = kp.map_batch(codes[:-1].numpy(), lens[:-1].numpy())
+    assert res.mapped.any() and counts.sum() > 0
+    assert [fn.launches for fn in kernels.WRAPPERS] == before
+    shard = si.upload_lookup(lookup, 0, "cpu")
+    packed = mk.pack_reads_device(codes)
+    nh_in = torch.zeros((2, 45), dtype=torch.int32)
+    for call in (lambda: kernels.pack_reads_cuda(codes),
+                 lambda: kernels.route_cuda(packed, lens, 20, 64, 2, cap),
+                 lambda: kernels.unscatter_cuda(
+                     torch.zeros((4, 2), dtype=torch.int32),
+                     torch.zeros(4, dtype=torch.int32), 2, 45),
+                 lambda: kernels.mphf_dynamic_cuda(
+                     packed[:, :2].contiguous(), shard, n_levels),
+                 lambda: kernels.next_hit_cuda(nh_in, nh_in, lens[:2], 20),
+                 lambda: kernels.tx_counts_cuda(packed, 5)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
