@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA GPU: single-end
 `map` under each of its seed indexes, `batch_stats`, the bit-packed index
-upload, paired-end `map`, single-cell `count`, the bitset EC path, and the
-multi-device layer on one card.
+upload, paired-end `map`, single-cell `count`, the bitset EC path, the
+multi-device layer on one card, and the graph-sharded walk.
 
     python3 chip_smoke.py [--seed 0] [--novel-bases 27000000] [--batches 16]
                           [--bitset-novel-bases 12000000]
@@ -23,7 +23,8 @@ Phases (every number printed is for the card named on the first line):
    full-output (exact re-map) shape, and times both: device time from a
    torch.profiler trace (where the trace misses launches, CUDA events
    around each call with the device held busy while the host prepares
-   it), and the span of back-to-back wrapper calls by CUDA events;
+   it), and the span of back-to-back wrapper calls by CUDA events; K2's
+   bound in both shapes;
 4. maps every batch through the device step alone (flagged -2/-3 share),
    times the serving emit loop (reads/s without set-up), then traces it
    once more for the device's busy share and its time per batch in copies
@@ -82,8 +83,26 @@ Phases (every number printed is for the card named on the first line):
    bitset index: its counts (the transcript-count kernel K9, all_reduce)
    equal a host recount of K4's bitsets, K9 equal to its plain version;
    (e) map_fastq_multihost at world size 1: its part file equals phase
-   11's map_fastq records and its merged counts their counts; (f) the
-   dry run `dryrun_multichip(1)`.
+   11's map_fastq records and its merged counts their counts, and the
+   count merge's all_reduce of one [n_tx] int32 vector is timed; (f) the
+   dry run `dryrun_multichip(1)` (its k-mer-partitioned step
+   graph-sharded);
+13. the graph-sharded walk (`KmerPartitionedAligner(..., shard_graph=True)`:
+   node rows and pool in S node blocks, a routed fetch per graph access):
+   (a) S = 1 over the NCCL group, the serving emit of every batch,
+   byte-identical to phase 6's cuckoo CLI output (K6, K7, K8, next_hit,
+   the walk steps K10 and the owner-side fetch K11 must have launched),
+   its rate beside phase 12's and its fetches, all_to_alls and liveness
+   syncs per batch; K10 and K11 timed on one recorded walk of the middle
+   batch; (b) four loopback shards on 4 batches spread over the file
+   (exact, one-SNP and reversed reads): every MapResult field equal to
+   the replicated engine's (K2), and every K10 and K11 launch equal to
+   its plain step on copies of the same inputs, tolerance 0; graph bytes
+   per shard; (c) the full-output shape on phase 11's bitset index, four
+   loopback shards, 4 batches: every field, ec_bits (K4's entry from the
+   pushed class ids) and the counts equal the data-parallel
+   ShardedAligner's (K4 from node ids, K9); K4's class-id entry equal to
+   its plain version and timed.
 
 Each kernel's bound is the least time the card could take for the work of
 this run's data: the bytes the function must move (inputs it needs read
@@ -503,11 +522,11 @@ def stats_work(meta, idx, packed, lens):
     return packed.numel() * 4 + B * 4 + pb + 24, po + 3 * k * B * P
 
 
-def ecbits_work(meta, idx, res):
+def ecbits_work(meta, idx, res, classes=None):
     """K4: each mapped read's first min(n_nodes, max_nodes) node ids and
-    their class ids, each class row the batch needs once, mapped and
-    n_nodes in, B x TW words out; one AND per word of each distinct class
-    of a read."""
+    their class ids (or, from `classes`, the class ids alone), each class
+    row the batch needs once, mapped and n_nodes in, B x TW words out; one
+    AND per word of each distinct class of a read."""
     import torch
 
     B, M = res.nodes.shape
@@ -515,14 +534,18 @@ def ecbits_work(meta, idx, res):
     n = res.n_nodes.long().clamp(max=M)
     used = ((torch.arange(M, device=n.device)[None, :] < n[:, None])
             & (res.nodes >= 0) & res.mapped[:, None])
-    ec = idx.node_row[res.nodes.clamp(min=0).long(), 3].long()
+    if classes is None:
+        ec = idx.node_row[res.nodes.clamp(min=0).long(), 3].long()
+    else:
+        ec = classes.long()
     ec = torch.where(used, ec, -1)
     srt = ec.sort(dim=1).values
     distinct = (srt >= 0) & torch.cat(
         [torch.ones_like(srt[:, :1], dtype=torch.bool),
          srt[:, 1:] != srt[:, :-1]], dim=1)
     n_used, n_rows = int(used.sum()), int(ec[used].unique().numel())
-    nbytes = 8 * n_used + 4 * TW * n_rows + 5 * B + 4 * B * TW
+    per_id = 8 if classes is None else 4
+    nbytes = per_id * n_used + 4 * TW * n_rows + 5 * B + 4 * B * TW
     return nbytes, int(distinct.sum()) * TW
 
 
@@ -593,6 +616,50 @@ def tx_counts_work(bits, n_tx):
     add per bit."""
     B, TW = bits.shape
     return B * TW * 4 + n_tx * 4, 64 * B * TW
+
+
+def gwalk_work(meta, kmeta, name, args, before, result=None):
+    """One K10 step call, from the walk state `before` it and after it
+    (args' st): every lane reads its activity flag and writes its S
+    request slots; an active lane also reads its fetched row (48 B) and
+    window words, its read's words and state, and writes state and a
+    push; init writes the state, the push buffer and both requests;
+    finish reads state and buffer and writes the outputs.  Operations: 20
+    per active lane and 6 per base matched (a lower bound of the compare)."""
+    from pseudoaligner_torch.parallel import graph_walk as gw
+
+    S, M = kmeta.n_shards, meta.max_nodes
+    ww, nw = gw.window_words(meta), (meta.read_len + 15) // 16
+    B = before.shape[0]
+    if name == "init":
+        return B * (16 + 4 * gw.NSTATE + 8 * M + 16 * S), 20 * B
+    if name == "finish":
+        out = sum(getattr(result, f).numel() * getattr(result, f)
+                  .element_size() for f in result._fields)
+        return B * (4 * gw.NSTATE + 8 * M) + out, 20 * B
+    st = args[{"left_a": 4, "left_b": 3, "forward": 6}[name]]
+    cov = int((st[:, gw.COV] - before[:, gw.COV]).clamp(min=0).sum())
+    if name == "left_a":
+        n = int((before[:, gw.L_ACT] != 0).sum())
+        return (B * (8 + 8 * S) + n * (28 + 4 * (12 + ww) + 4 * nw),
+                20 * n + 6 * cov)
+    if name == "left_b":
+        n = int((before[:, gw.FOLLOW] >= 0).sum())
+        return B * (12 + 8 * S) + n * (48 + 8 + 12), 20 * n
+    n = int((before[:, gw.F_ACT] != 0).sum())
+    return (B * (12 + 8 * S) + n * (4 * (12 + ww) + 4 * nw + 72),
+            20 * n + 6 * cov)
+
+
+def gfetch_work(recv, ww):
+    """K11, one serve call: every request slot read and its response
+    written; a valid request's 48-byte row and (ww + 1) pool words read;
+    a few operations per word."""
+    valid = int((recv[..., 0] >= 0).sum())
+    slots = recv.shape[0] * recv.shape[1]
+    nbytes = (slots * 8 + slots * (12 + ww) * 4
+              + valid * (48 + (4 * (ww + 1) if ww else 0)))
+    return nbytes, valid * (12 + 3 * ww)
 
 
 def host_counts(records, n_tx):
@@ -677,6 +744,7 @@ def main(argv=None) -> int:
     from pseudoaligner_torch.ops.map_kernel import (
         device_index_from_image,
         ec_bitset_intersect,
+        ec_bitset_intersect_classes,
         pack_reads_host,
         pack_serving_args,
         packed_tensors,
@@ -757,10 +825,11 @@ def main(argv=None) -> int:
 
     ms = {}
 
-    def time_pair(name, f, reps, sym, n=n_b, held_only=False):
+    def time_pair(name, f, reps, sym, n=n_b, held_only=False, per_call=1):
         """Time f over rotating batches; ms[name] is the trace's device
-        time where it saw every launch, else the held-event time (always
-        with held_only: a wrapper of several launches and memsets)."""
+        time where it saw every launch (per_call launches of `sym` per
+        call), else the held-event time (always with held_only: a wrapper
+        of several launches and memsets)."""
         span = span_ms(rotating(f, n), reps)
         dev_ms, seen = device_ms(rotating(f, n), reps, sym)
         held = held_ms(rotating(f, n), reps)
@@ -773,7 +842,7 @@ def main(argv=None) -> int:
         # the trace's device time where it saw every launch, else the
         # held-event time
         ms[name] = dev_ms if dev_ms is not None and not held_only and (
-            sym is None or seen == reps) else held
+            sym is None or seen == reps * per_call) else held
 
     def serving_report(al, mode: str):
         """Phase 4 for one engine: the device step alone, the serving emit
@@ -831,7 +900,10 @@ def main(argv=None) -> int:
                 "unscatter": kernels.unscatter_cuda.launches,
                 "mphf_dynamic": kernels.mphf_dynamic_cuda.launches,
                 "next_hit": kernels.next_hit_cuda.launches,
-                "tx_counts": kernels.tx_counts_cuda.launches}
+                "tx_counts": kernels.tx_counts_cuda.launches,
+                "ec_bits_classes": kernels.ec_bits_classes_cuda.launches,
+                "gwalk": sum(f.launches for f in kernels.GWALK_WRAPPERS),
+                "gfetch": kernels.gfetch_cuda.launches}
 
     # ---- 3. cuckoo: kernels vs plain on the card ----
     cfg, al = serve_init("cuckoo")
@@ -866,7 +938,13 @@ def main(argv=None) -> int:
     bounds = {
         "seed": bound([seed_work(meta, idx, pk, lens) for pk in packed]),
         "walk": bound([walk_work(pk, kernels.walk_cuda(
-            meta, idx, pk, lens, nh3[b])) for b, pk in enumerate(packed)])}
+            meta, idx, pk, lens, nh3[b])) for b, pk in enumerate(packed)]),
+        "walk_full": bound([walk_work(pk, kernels.walk_cuda(
+            meta_full, idx, pk, lens, nh3[b]))
+            for b, pk in enumerate(packed)])}
+    say(f"[cuckoo] walk bound ms per batch: serving {bounds['walk'][0]} "
+        f"({bounds['walk'][1]}), full output {bounds['walk_full'][0]} "
+        f"({bounds['walk_full'][1]})")
     # (name, call, reps, kernel symbol): each kernel against its plain
     # version, both in the serving shape and in the full-output shape
     timed = [
@@ -1429,6 +1507,7 @@ def main(argv=None) -> int:
     say(f"[multi] kpart serving emit (S=1, NCCL) over {n_reads} reads: "
         f"{dt:.2f} s, {n_reads / dt:.0f} reads/s; byte-identical to the "
         f"phase-6 cuckoo CLI output; launches {launches['kpart']}")
+    kpart_rate, rep_graph_bytes = n_reads / dt, kp.dev.nbytes()
     srv.close()
     del srv, kp, buf
 
@@ -1486,7 +1565,12 @@ def main(argv=None) -> int:
               n_b, "tx_counts_kernel", MODE_BATCHES)
     time_pair("tx_counts_plain", lambda i: tx_compat_counts(dp_res[i], n_tx),
               2, None, MODE_BATCHES)
-    del sa, dp_res
+    # the count merge's exchange (row 17, a library call): all_reduce of
+    # one [n_tx] int32 vector over the NCCL group
+    one_counts = kernels.tx_counts_cuda(dp_res[0], n_tx)
+    time_pair("all_reduce", lambda i: mesh1.all_reduce([one_counts]), n_b,
+              None, 1, held_only=True)
+    del sa, dp_res, one_counts
 
     # (e) the multi-host map at world size 1: part file == the record path's
     # records, merged counts == their counts
@@ -1508,8 +1592,204 @@ def main(argv=None) -> int:
 
     # (f) the dry run
     dry = dryrun_multichip(1)
-    dist.destroy_process_group()
+    if not dry.get("kpart_graph_sharded"):
+        raise AssertionError(f"the dry run's kpart step is not graph-sharded:"
+                             f" {dry}")
     say(f"[multi] dryrun_multichip(1): {dry}")
+
+    # ---- 13. the graph-sharded walk ----
+    from pseudoaligner_torch.parallel import graph_walk as gw
+
+    def graph_bytes(kpx):
+        """Per shard: (its node-row and pool block, the replicated rest:
+        class bitsets and the placeholders), bytes."""
+        return [(sum(t_.numel() * 4 for t_ in g), kpx.dev.nbytes())
+                for g in kpx.graphs]
+
+    # (a) S = 1 over the NCCL group: the serving emit of every batch
+    t = time.time()
+    kpg = si.KmerPartitionedAligner(image, cfg_s, mesh1, shard_graph=True)
+    torch.cuda.synchronize()
+    say(f"[graph] kpart S=1 graph-sharded set-up {time.time() - t:.1f} s: "
+        f"node block {kpg.kmeta.node_block} of {image.n_nodes} nodes, graph "
+        f"bytes on the shard (node-row and pool block, replicated rest) "
+        f"{graph_bytes(kpg)[0]} (replicated-graph kpart: "
+        f"{rep_graph_bytes})")
+    srv = kpg.serving_aligner()
+    with open(os.devnull, "wb") as sink:  # warm the host caches
+        srv.emit_fastq(fq_path, sink)
+    kernels.reset_launch_counts()
+    kpg.walk_stats.clear()
+    buf = io.BytesIO()
+    torch.cuda.synchronize()
+    t = time.time()
+    n_emit, _ = srv.emit_fastq(fq_path, buf)
+    torch.cuda.synchronize()
+    dt = time.time() - t
+    launches["graph"] = launch_counts()
+    need = ("pack", "route", "unscatter", "mphf_dynamic", "next_hit", "gwalk",
+            "gfetch")
+    if min(launches["graph"][k] for k in need) < 1:
+        raise AssertionError(f"a kernel never launched on the graph-sharded "
+                             f"path: {launches['graph']}")
+    if n_emit != n_reads or buf.getvalue() != outs["cuckoo"]:
+        raise AssertionError("graph-sharded serving emit differs from the "
+                             "cuckoo CLI output")
+    ws = dict(kpg.walk_stats)
+    per = {k: ws[k] / ws["walks"] for k in ws if k != "walks"}
+    say(f"[graph] graph-sharded kpart serving emit (S=1, NCCL) over "
+        f"{n_reads} reads: {dt:.2f} s, {n_reads / dt:.0f} reads/s "
+        f"(replicated-graph kpart, phase 12: {kpart_rate:.0f}); "
+        f"byte-identical to the phase-6 cuckoo CLI output; per batch "
+        f"({ws['walks']} walks): {per}; launches {launches['graph']}")
+    srv.close()
+    del srv, buf
+
+    # K10 and K11 timed on one recorded walk of the middle batch (one-SNP
+    # reads: the left loop runs): init resets the state, so replaying the
+    # recorded calls repeats the same walk
+    calls = []
+
+    def recording(steps):
+        def rec(name):
+            f = getattr(steps, name)
+
+            def call(*a):
+                calls.append((name, a))
+                return f(*a)
+            return call
+        return gw.Steps(*(rec(n) for n in gw.Steps._fields))
+
+    kpg.walk_steps = recording(gw.kernel_steps())
+    kpg.map_batch(reads[mid * BATCH:(mid + 1) * BATCH], lens_np)
+    kpg.walk_steps = None
+    ks, meta_g = gw.kernel_steps(), kpg.meta
+    walk_works, fetch_works = [], []
+    st_at = {"init": 4, "left_a": 4, "left_b": 3, "forward": 6, "finish": 2}
+    for name, a in calls:
+        if name == "serve":
+            fetch_works.append(gfetch_work(a[2], a[5]))
+            continue
+        before = a[st_at[name]].clone()
+        out = getattr(ks, name)(*a)
+        walk_works.append(gwalk_work(meta_g, kpg.kmeta, name, a, before,
+                                     out))
+    n_walk = len(walk_works)
+    n_fetch = len(fetch_works)
+    bounds["gwalk"] = bound([tuple(sum(w[i] for w in walk_works)
+                                   for i in (0, 1))])
+    bounds["gfetch"] = bound([tuple(sum(w[i] for w in fetch_works)
+                                    for i in (0, 1))])
+
+    def replay(steps, which):
+        def run(_i):
+            for name, a in calls:
+                if (name == "serve") == (which == "serve"):
+                    getattr(steps, name)(*a)
+        return run
+
+    time_pair("gwalk", replay(ks, "walk"), n_b, "gwalk_", 1,
+              per_call=n_walk)
+    time_pair("gwalk_plain", replay(gw.PLAIN_STEPS, "walk"), 2, None, 1)
+    time_pair("gfetch", replay(ks, "serve"), n_b, "gfetch_kernel", 1,
+              per_call=n_fetch)
+    time_pair("gfetch_plain", replay(gw.PLAIN_STEPS, "serve"), 2, None, 1)
+    say(f"[graph] one serving walk of batch {mid}: {n_walk} K10 launches "
+        f"({', '.join(n for n, _ in calls if n != 'serve')}), {n_fetch} K11 "
+        f"launches; ms per walk K10 {ms['gwalk']} (bound {bounds['gwalk']}),"
+        f" K11 {ms['gfetch']} (bound {bounds['gfetch']})")
+    del calls, kpg
+
+    # (b) four loopback shards on the batches spread over the file (exact,
+    # one-SNP and reversed reads): every field == the replicated engine's,
+    # every K10 and K11 launch == its plain step on copies of its inputs
+    t = time.time()
+    kp4g = si.KmerPartitionedAligner(image, cfg_eager,
+                                     make_mesh(4, loopback=True),
+                                     shard_graph=True)
+    torch.cuda.synchronize()
+    say(f"[graph] kpart S=4 (loopback) graph-sharded set-up "
+        f"{time.time() - t:.1f} s: node block {kp4g.kmeta.node_block}, "
+        f"graph bytes per shard (block, replicated rest) "
+        f"{graph_bytes(kp4g)} (replicated-graph kpart: "
+        f"{rep_graph_bytes})")
+    step_err = {}
+    kp4g.walk_steps = gw.paired_steps(gw.kernel_steps(), gw.PLAIN_STEPS,
+                                      step_err)
+    base = Pseudoaligner(image, cfg_eager, device="cuda")
+    for b in sel:
+        rows = reads[b * BATCH:(b + 1) * BATCH]
+        got, _ = kp4g.map_batch(rows, lens_np)
+        compare_results(got, base.map_batch_device(rows, lens_np),
+                        f"graph-sharded kpart S=4, batch {b}")
+    torch.cuda.synchronize()
+    if set(step_err) != set(gw.Steps._fields) or any(step_err.values()):
+        raise AssertionError(f"K10/K11 differ from their plain steps: "
+                             f"{step_err}")
+    err["gwalk"] = max(v for k, v in step_err.items() if k != "serve")
+    err["gfetch"] = step_err["serve"]
+    say(f"[graph] kpart S=4 loopback graph-sharded == replicated engine, "
+        f"every MapResult field, on batches {sel}; every K10 and "
+        f"K11 launch == its plain step, tolerance 0 ({step_err}); walk "
+        f"{kp4g.walk_stats}")
+    base.close()
+    del kp4g, base
+
+    # (c) the full-output shape on the bitset index: ec_bits from the
+    # pushed class ids (never the placeholder node_row) and the counts ==
+    # the data-parallel engine's (K4 from node ids, K9), whose uncapped
+    # walk keeps 2 * read_len nodes
+    cfg12e = dataclasses.replace(cfg12, lazy_seeds=False,
+                                 max_nodes=2 * READ_LEN)
+    t = time.time()
+    kpb = si.KmerPartitionedAligner(image12, cfg12e,
+                                    make_mesh(4, loopback=True),
+                                    shard_graph=True)
+    torch.cuda.synchronize()
+    say(f"[graph] bitset index, kpart S=4 (loopback) graph-sharded set-up "
+        f"{time.time() - t:.1f} s, graph bytes per shard {graph_bytes(kpb)}")
+    sa = ShardedAligner(image12, cfg12e, mesh1)
+    kernels.reset_launch_counts()
+    cls_res = []
+    for b in range(MODE_BATCHES):
+        rows = reads12[b * BATCH:(b + 1) * BATCH]
+        got, counts = kpb.map_batch(rows, lens_np)
+        want, want_counts = sa.map_batch(rows, lens_np)
+        compare_results(got, want, f"graph-sharded full output, batch {b}")
+        if max_abs_diff(counts, want_counts):
+            raise AssertionError(f"graph-sharded counts differ on batch {b}")
+        cls_res.append(got)
+    torch.cuda.synchronize()
+    launches["graph_full"] = launch_counts()
+    if min(launches["graph_full"][k] for k in ("gwalk", "gfetch",
+                                                "ec_bits_classes")) < 1:
+        raise AssertionError(f"a kernel never launched on the graph-sharded "
+                             f"full output: {launches['graph_full']}")
+    say(f"[graph] full output (bitset index, S=4 loopback): every field, "
+        f"ec_bits and counts == ShardedAligner's on {MODE_BATCHES} batches; "
+        f"walk {kpb.walk_stats}; launches {launches['graph_full']}")
+    # K4's class-id entry against its plain version on the pushed classes
+    # (each visited node's class, from the data-parallel engine's rows)
+    mb, ib = kpb.meta, kpb.dev
+    cls = [torch.where(r.nodes >= 0, sa.dev.node_row[
+        r.nodes.clamp(min=0).long(), 3], -1) for r in cls_res]
+    err["ec_bits_classes"] = max(max_abs_diff(
+        kernels.ec_bits_classes_cuda(mb, ib, c, r.n_nodes, r.mapped),
+        ec_bitset_intersect_classes(mb, ib, c, r.n_nodes, r.mapped))
+        for c, r in zip(cls, cls_res))
+    if err["ec_bits_classes"]:
+        raise AssertionError("ec_bits (classes) kernel differs from its "
+                             "plain version")
+    bounds["ec_bits_classes"] = bound([ecbits_work(mb, ib, r, c)
+                                       for c, r in zip(cls, cls_res)])
+    time_pair("ec_bits_classes", lambda i: kernels.ec_bits_classes_cuda(
+        mb, ib, cls[i], cls_res[i].n_nodes, cls_res[i].mapped), n_b,
+        "ec_bits_kernel", MODE_BATCHES)
+    time_pair("ec_bits_classes_plain", lambda i: ec_bitset_intersect_classes(
+        mb, ib, cls[i], cls_res[i].n_nodes, cls_res[i].mapped), 2, None,
+        MODE_BATCHES)
+    del kpb, sa, cls_res, cls
+    dist.destroy_process_group()
 
     def entry(name, key, source, replaces, mode, which):
         b_ms, b_by = bounds[key]
@@ -1549,6 +1829,12 @@ def main(argv=None) -> int:
               "sharded", "tx_counts"),
         entry("next_hit", "next_hit", "seed.cu", "ops/map_kernel.py:583",
               "kpart", "next_hit"),
+        entry("gwalk (one walk's steps)", "gwalk", "gwalk.cu",
+              "ops/map_kernel.py:762", "graph", "gwalk"),
+        entry("gfetch (one walk's fetches)", "gfetch", "gfetch.cu",
+              "parallel/sharded_index.py:151", "graph", "gfetch"),
+        entry("ec_bits[classes]", "ec_bits_classes", "ecbits.cu",
+              "ops/map_kernel.py:1186", "graph_full", "ec_bits_classes"),
     ]}
     say(f"total {time.time() - t_start:.1f} s")
     say(json.dumps(kernels_line))

@@ -1,19 +1,22 @@
 """Command-line interface of the PyTorch port: `index`, `map` (single-end
-and paired-end) and `count`.
+and paired-end), `count`, and the host-only `mappability`, `idxstats` and
+`inspect`.
 
-Same flags, stdout and output files as `pseudoaligner_tpu.cli` for these
-commands (`map` writes one record per read, or per pair, in the
-reference's debug format `(flag, "read_id", [eq, class], coverage)`;
-`count` writes barcodes.tsv, ec.tsv and matrix.mtx), plus
-`--device {cuda,cpu}`.  `map --seed-index` takes all three seed indexes
-(cuckoo, bucket1, mphf).  `mappability`, `idxstats` and `inspect` are not
-ported yet and raise NotImplementedError.
+Same flags, stdout and output files as `pseudoaligner_tpu.cli` (`map`
+writes one record per read, or per pair, in the reference's debug format
+`(flag, "read_id", [eq, class], coverage)`; `count` writes barcodes.tsv,
+ec.tsv and matrix.mtx; `mappability` writes tx_mappability.tsv), plus
+`--device {cuda,cpu}` on `map` and `count`.  `map --seed-index` takes all
+three seed indexes (cuckoo, bucket1, mphf).
 
     python -m pseudoaligner_torch index -i IDX transcripts.fa
     python -m pseudoaligner_torch map -i IDX reads.fq --device cuda > out
     python -m pseudoaligner_torch map -i IDX r1.fq r2.fq > pairs.out
     python -m pseudoaligner_torch map -i IDX reads.fq --seed-index mphf
     python -m pseudoaligner_torch count -i IDX R1.fq R2.fq -o DIR
+    python -m pseudoaligner_torch mappability -i IDX -o DIR
+    python -m pseudoaligner_torch idxstats -i IDX > stats.tsv
+    python -m pseudoaligner_torch inspect -i IDX
 """
 
 from __future__ import annotations
@@ -30,7 +33,6 @@ from .config import AlignerConfig
 
 log = logging.getLogger("pseudoaligner_torch")
 
-NOT_PORTED = ("mappability", "idxstats", "inspect")
 USAGE_KMER_SUPPORTED = (20, 64)
 
 
@@ -176,8 +178,16 @@ def _build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--batch-size", type=int, default=32768)
     sp.add_argument("--max-read-len", type=int, default=160)
     device_flag(sp)
-    for name in NOT_PORTED:
-        sub.add_parser(name, help="not ported yet")
+
+    sp = sub.add_parser("mappability", help="per-transcript mappability report")
+    common(sp)
+    sp.add_argument("-o", "--outdir", default=None)
+
+    sp = sub.add_parser("idxstats", help="dump per-node stats")
+    common(sp)
+
+    sp = sub.add_parser("inspect", help="print index summary")
+    common(sp)
     return p
 
 
@@ -353,6 +363,38 @@ def cmd_count(args, outdir: str) -> int:
     return 0
 
 
+def cmd_mappability(args, outdir: str) -> int:
+    from .mappability import write_mappability_tsv
+
+    log.info("Reading index from disk")
+    image = open_index(args.index)
+    if image.k != args.kmer_size:
+        # the k-mismatch contract of map and count
+        print(f"Index was built with k={image.k}, not k={args.kmer_size}")
+        return 1
+    log.info("Finished reading index!")
+    log.info("Analyzing de Bruijn graph")
+    log.info("%d transcripts total", image.n_tx)
+    write_mappability_tsv(image, outdir)
+    return 0
+
+
+def cmd_idxstats(args) -> int:
+    image = open_index(args.index)
+    lens = np.diff(image.ec_offsets.astype(np.int64))
+    out = sys.stdout
+    for n in range(image.n_nodes):
+        out.write(f"{n}\t{int(image.node_len[n])}\t"
+                  f"{int(lens[image.node_ec[n]])}\n")
+    return 0
+
+
+def cmd_inspect(args) -> int:
+    for key, val in open_index(args.index).stats().items():
+        print(f"{key}\t{val}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     logging.basicConfig(
@@ -360,8 +402,6 @@ def main(argv=None) -> int:
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
         stream=sys.stderr,
     )
-    if args.cmd in NOT_PORTED:
-        raise NotImplementedError(f"`{args.cmd}` is not ported yet")
     outdir = getattr(args, "outdir", None) or os.getcwd()
     os.makedirs(outdir, exist_ok=True)
     if not _check_k(args.kmer_size):
@@ -370,6 +410,12 @@ def main(argv=None) -> int:
         return cmd_index(args)
     if args.cmd == "count":
         return cmd_count(args, outdir)
+    if args.cmd == "mappability":
+        return cmd_mappability(args, outdir)
+    if args.cmd == "idxstats":
+        return cmd_idxstats(args)
+    if args.cmd == "inspect":
+        return cmd_inspect(args)
     return cmd_map(args, outdir)
 
 

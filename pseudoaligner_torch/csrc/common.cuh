@@ -1,7 +1,8 @@
 // Shared device code of the mapping kernels (seed.cu, walk.cu, stats.cu,
-// route.cu, mphfdyn.cu): launch parameters, 2-bit base access, the k-mer
-// hash, the three seed index probes (cuckoo, bucket1, MPHF with a stored-key
-// verify) and the backward pass of the next-hit table.
+// route.cu, mphfdyn.cu, gwalk.cu): launch parameters, 2-bit base access,
+// the k-mer hash, the three seed index probes (cuckoo, bucket1, MPHF with a
+// stored-key verify), the backward pass of the next-hit table, and the
+// walk's segment compare and output encoding.
 //
 // Layouts (see pseudoaligner_torch/ops/map_kernel.py):
 //   packed      [B, nw] uint32, base i of a read at bits 2*(i%16) of word i/16
@@ -310,6 +311,78 @@ __device__ __forceinline__ void next_hit_residue(int P, int r, int last_valid,
     out[0] = q;
     out[1] = qn;
     out[2] = qo;
+  }
+}
+
+// One segment compare of the walk under the per-segment SNP budget: bases
+// i = 0, 1, ... < maxm, where ref(i) and read(i) give compared base i of
+// the reference and of the read.  The base that breaks the budget counts
+// as a mismatch (*seen) but not as matched; returns whether it was broken.
+// The reference side is the global pool in K2 (walk.cu) and a window a
+// routed fetch returned in K10 (gwalk.cu), so both walks share this loop.
+template <class Ref, class Read>
+__device__ __forceinline__ bool segment_compare(int maxm, int allowed, Ref ref,
+                                                Read read, int* matched,
+                                                int* seen) {
+  int m = 0, s = 0;
+  bool prem = false;
+  for (int i = 0; i < maxm; i++) {
+    if (ref(i) != read(i)) {
+      if (++s > allowed) {
+        prem = true;
+        break;
+      }
+    }
+    m++;
+  }
+  *matched = m;
+  *seen = s;
+  return prem;
+}
+
+// One read's outputs from its walk (K2 and K10): n_nodes, mapped and the
+// mismatches; then the full node list (p.dc == 0) or the compact output:
+// coverage (uint8 when p.cov8), the run-length EC ids of the push buffer
+// mybuf [max_nodes, 2] in p.dc slots, -2 in the last when more runs were
+// visited, -3 when `capped` (int16 when p.ec16).
+__device__ __forceinline__ void encode_output(
+    const Params& p, int b, const int32_t* mybuf, int nn, int cov, int mm,
+    bool capped, uint8_t* mapped_out, void* cov_out, int32_t* mm_out,
+    int32_t* nn_out, void* dist_out, int32_t* nodes_out) {
+  const int M = p.max_nodes;
+  nn_out[b] = nn;
+  mapped_out[b] = nn > 0;
+  mm_out[b] = mm;
+  if (p.dc == 0) {
+    reinterpret_cast<int32_t*>(cov_out)[b] = cov;
+    for (int i = 0; i < M; i++) nodes_out[(size_t)b * M + i] = mybuf[2 * i];
+    return;
+  }
+  if (p.cov8)
+    reinterpret_cast<uint8_t*>(cov_out)[b] = (uint8_t)cov;
+  else
+    reinterpret_cast<int32_t*>(cov_out)[b] = cov;
+  // run-length compaction of the stored EC ids in push order
+  int slots[64];
+  const int dc = p.dc;
+  for (int i = 0; i < dc; i++) slots[i] = -1;
+  int runs = 0, prev = -1;
+  for (int i = 0; i < M; i++) {
+    const int v = mybuf[2 * i + 1];
+    if (v >= 0 && v != prev) {
+      if (runs < dc) slots[runs] = v;
+      runs++;
+    }
+    prev = v;
+  }
+  if (runs > dc) slots[dc - 1] = -2;
+  if (capped) slots[dc - 1] = -3;
+  if (p.ec16) {
+    int16_t* o = reinterpret_cast<int16_t*>(dist_out) + (size_t)b * dc;
+    for (int i = 0; i < dc; i++) o[i] = (int16_t)slots[i];
+  } else {
+    int32_t* o = reinterpret_cast<int32_t*>(dist_out) + (size_t)b * dc;
+    for (int i = 0; i < dc; i++) o[i] = slots[i];
   }
 }
 

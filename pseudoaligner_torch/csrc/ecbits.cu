@@ -8,7 +8,9 @@
 //
 // One warp per read.  The read's first min(n_nodes, max_nodes) node ids
 // (the buffer holds no more) are read 32 at a time, one per lane, and each
-// lane gathers its node's class from node_row[n, 3].  __match_any_sync
+// lane gathers its node's class from node_row[n, 3] (pa_ec_bits) or reads
+// the class the walk pushed (pa_ec_bits_classes: the graph-sharded walk,
+// whose replicated node_row is a placeholder).  __match_any_sync
 // keeps the first lane of each class within those 32, so a class met
 // several times in a chunk is gathered once (AND is idempotent: a class
 // repeated across chunks of a read longer than 32 nodes is ANDed twice
@@ -30,6 +32,10 @@ namespace {
 
 constexpr int WARPS = 8;  // reads per block
 
+// CLASSES: `nodes` holds the pushed class ids themselves (the
+// graph-sharded walk's buffer, whose replicated node_row is a placeholder)
+// and node_row is not read; else node ids, whose class is node_row[n, 3]
+template <bool CLASSES>
 __global__ void ec_bits_kernel(int B, int M, int TW,
                                const int32_t* __restrict__ nodes,
                                const int32_t* __restrict__ n_nodes,
@@ -54,7 +60,7 @@ __global__ void ec_bits_kernel(int B, int M, int TW,
       int ec = -1;
       if (c0 + lane < n) {
         const int nd = nb[c0 + lane];
-        if (nd >= 0) ec = node_row[(int64_t)nd * 12 + 3];
+        if (nd >= 0) ec = CLASSES ? nd : node_row[(int64_t)nd * 12 + 3];
       }
       const unsigned same = __match_any_sync(0xFFFFFFFFu, ec);
       const bool first = ec >= 0 && __ffs(same) - 1 == lane;
@@ -70,6 +76,20 @@ __global__ void ec_bits_kernel(int B, int M, int TW,
   }
 }
 
+template <bool CLASSES>
+int launch(int device, int B, int M, int TW, const int32_t* ids,
+           const int32_t* n_nodes, const bool* mapped,
+           const int32_t* node_row, const uint32_t* ec_bits, uint32_t* out,
+           void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (B == 0 || TW == 0) return 0;
+  const int blocks = (B + WARPS - 1) / WARPS;
+  ec_bits_kernel<CLASSES><<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      B, M, TW, ids, n_nodes, mapped, node_row, ec_bits, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int pa_ec_bits(int device, int B, int M, int TW,
@@ -77,11 +97,16 @@ extern "C" int pa_ec_bits(int device, int B, int M, int TW,
                           const bool* mapped, const int32_t* node_row,
                           const uint32_t* ec_bits, uint32_t* out,
                           void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  if (B == 0 || TW == 0) return 0;
-  const int blocks = (B + WARPS - 1) / WARPS;
-  ec_bits_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
-      B, M, TW, nodes, n_nodes, mapped, node_row, ec_bits, out);
-  return (int)cudaGetLastError();
+  return launch<false>(device, B, M, TW, nodes, n_nodes, mapped, node_row,
+                       ec_bits, out, stream);
+}
+
+// The same from the pushed class ids [B, M] (no node_row).
+extern "C" int pa_ec_bits_classes(int device, int B, int M, int TW,
+                                  const int32_t* classes,
+                                  const int32_t* n_nodes, const bool* mapped,
+                                  const uint32_t* ec_bits, uint32_t* out,
+                                  void* stream) {
+  return launch<true>(device, B, M, TW, classes, n_nodes, mapped, nullptr,
+                      ec_bits, out, stream);
 }

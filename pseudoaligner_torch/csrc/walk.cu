@@ -21,7 +21,9 @@
 //     overflow, -3 when capped, int16/uint8 narrowing), or the full node
 //     list when distinct_cap == 0.
 // The (node, ec) push buffer is the wrapper's [B, max_nodes, 2] scratch;
-// only the first max_nodes pushes are stored, n_nodes counts all.
+// only the first max_nodes pushes are stored, n_nodes counts all.  The
+// segment compare and the output encoding are common.cuh's, shared with
+// the graph-sharded walk's steps (K10, gwalk.cu).
 //
 // Bound on the H100: a latency-bound, divergent pointer chase.  Each step
 // reads a 48-byte node row, a few pool words and, on seek, the seed
@@ -80,18 +82,12 @@ __global__ void walk_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
       const int32_t* nr = node_row + (size_t)node * 12;
       const int nstart = nr[0];
       const int maxm = min(last_pos + 1, pko + 1);
-      int matched = 0, seen = 0;
-      bool prem = false;
-      for (int i = 0; i < maxm; i++) {
-        if (pa::base_at(pool, nstart + pko - i) !=
-            pa::base_at(read, last_pos - i)) {
-          if (++seen > allowed) {
-            prem = true;
-            break;
-          }
-        }
-        matched++;
-      }
+      int matched, seen;
+      const bool prem = pa::segment_compare(
+          maxm, allowed,
+          [&](int i) { return pa::base_at(pool, nstart + pko - i); },
+          [&](int i) { return pa::base_at(read, last_pos - i); }, &matched,
+          &seen);
       cov += matched;
       mm += seen;
       const bool stop = (last_pos + 1 - matched == 0) || prem;
@@ -141,17 +137,11 @@ __global__ void walk_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
       const int ref_off = koff + k;
       const int nstart = nr[0] + ref_off;
       const int maxm = max(min(len - kpos, nr[1] - ref_off), 0);
-      int matched = 0, seen = 0;
-      bool prem = false;
-      for (int i = 0; i < maxm; i++) {
-        if (pa::base_at(pool, nstart + i) != pa::base_at(read, kpos + i)) {
-          if (++seen > allowed) {
-            prem = true;
-            break;
-          }
-        }
-        matched++;
-      }
+      int matched, seen;
+      const bool prem = pa::segment_compare(
+          maxm, allowed, [&](int i) { return pa::base_at(pool, nstart + i); },
+          [&](int i) { return pa::base_at(read, kpos + i); }, &matched,
+          &seen);
       kpos += matched;
       cov += matched;
       mm += seen;
@@ -185,40 +175,8 @@ __global__ void walk_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
   capped = capped || nn > M;
 
   // ---- output ----
-  nn_out[b] = nn;
-  mapped_out[b] = nn > 0;
-  mm_out[b] = mm;
-  if (p.dc == 0) {
-    reinterpret_cast<int32_t*>(cov_out)[b] = cov;
-    for (int i = 0; i < M; i++) nodes_out[(size_t)b * M + i] = mybuf[2 * i];
-    return;
-  }
-  if (p.cov8)
-    reinterpret_cast<uint8_t*>(cov_out)[b] = (uint8_t)cov;
-  else
-    reinterpret_cast<int32_t*>(cov_out)[b] = cov;
-  // run-length compaction of the stored EC ids in push order
-  int slots[64];
-  const int dc = p.dc;
-  for (int i = 0; i < dc; i++) slots[i] = -1;
-  int runs = 0, prev = -1;
-  for (int i = 0; i < M; i++) {
-    const int v = mybuf[2 * i + 1];
-    if (v >= 0 && v != prev) {
-      if (runs < dc) slots[runs] = v;
-      runs++;
-    }
-    prev = v;
-  }
-  if (runs > dc) slots[dc - 1] = -2;
-  if (capped) slots[dc - 1] = -3;
-  if (p.ec16) {
-    int16_t* o = reinterpret_cast<int16_t*>(dist_out) + (size_t)b * dc;
-    for (int i = 0; i < dc; i++) o[i] = (int16_t)slots[i];
-  } else {
-    int32_t* o = reinterpret_cast<int32_t*>(dist_out) + (size_t)b * dc;
-    for (int i = 0; i < dc; i++) o[i] = slots[i];
-  }
+  pa::encode_output(p, b, mybuf, nn, cov, mm, capped, mapped_out, cov_out,
+                    mm_out, nn_out, dist_out, nodes_out);
 }
 
 }  // namespace

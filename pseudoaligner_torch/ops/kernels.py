@@ -1,7 +1,9 @@
 """Build, bind and launch the CUDA kernels: csrc/seed.cu K1 (and its
-next_hit entry), csrc/walk.cu K2, csrc/stats.cu K3, csrc/ecbits.cu K4,
-csrc/unpack.cu K5, csrc/pack.cu K6, csrc/route.cu K7 (route and
-unscatter), csrc/mphfdyn.cu K8 and csrc/txcounts.cu K9.
+next_hit entry), csrc/walk.cu K2, csrc/stats.cu K3, csrc/ecbits.cu K4 (and
+its entry from class ids), csrc/unpack.cu K5, csrc/pack.cu K6,
+csrc/route.cu K7 (route and unscatter), csrc/mphfdyn.cu K8,
+csrc/txcounts.cu K9, csrc/gwalk.cu K10 (the graph-sharded walk's steps)
+and csrc/gfetch.cu K11 (its owner-side fetch).
 
 The sources compile with nvcc for sm_90a, one nvcc per source, all
 started together, and link into one shared library with a plain C
@@ -142,6 +144,21 @@ def _load():
             lib.pa_mphf_dynamic.argtypes = [_I, _L, _I, _I] + [_P] * 11
             lib.pa_tx_counts.restype = _I
             lib.pa_tx_counts.argtypes = [_I] * 4 + [_P] * 3
+            lib.pa_ec_bits_classes.restype = _I
+            lib.pa_ec_bits_classes.argtypes = [_I] * 4 + [_P] * 6
+            lib.pa_gwalk_init.restype = _I
+            lib.pa_gwalk_init.argtypes = [_P, _P, ctypes.c_float, _I] + [
+                _P] * 7
+            lib.pa_gwalk_left_a.restype = _I
+            lib.pa_gwalk_left_a.argtypes = [_P, _P, _I] + [_P] * 5
+            lib.pa_gwalk_left_b.restype = _I
+            lib.pa_gwalk_left_b.argtypes = [_P, _P, _I] + [_P] * 5
+            lib.pa_gwalk_forward.restype = _I
+            lib.pa_gwalk_forward.argtypes = [_P, _P, _I] + [_P] * 8
+            lib.pa_gwalk_finish.restype = _I
+            lib.pa_gwalk_finish.argtypes = [_P, _I] + [_P] * 9
+            lib.pa_gfetch.restype = _I
+            lib.pa_gfetch.argtypes = [_I, _L, _I, _I, _I, _L] + [_P] * 5
             lib.pa_error_string.restype = ctypes.c_char_p
             lib.pa_error_string.argtypes = [_I]
             _lib = lib
@@ -384,6 +401,38 @@ def ec_bits_cuda(meta: MapMeta, idx: DeviceIndex, nodes: torch.Tensor,
 ec_bits_cuda.launches = 0
 
 
+def ec_bits_classes_cuda(meta: MapMeta, idx: DeviceIndex,
+                         classes: torch.Tensor, n_nodes: torch.Tensor,
+                         mapped: torch.Tensor) -> torch.Tensor:
+    """K4's entry from class ids: the pushed class ids [B, max_nodes] int32
+    (-1 for empty slots) of a graph-sharded walk in place of its node ids,
+    n_nodes [B] int32, mapped [B] bool -> ec_bits [B, TW] int32, as
+    map_kernel.ec_bitset_intersect_classes.  Reads no node_row."""
+    if not classes.is_cuda:
+        raise ValueError("the CUDA kernels take CUDA tensors")
+    dev, TW = classes.device, meta.tx_words
+    B, M = classes.shape
+    if TW < 1 or M < 1:
+        raise ValueError(f"tx_words {TW} and max_nodes {M} must be >= 1")
+    _check("classes", classes, torch.int32, (B, M), dev)
+    _check("n_nodes", n_nodes, torch.int32, (B,), dev)
+    _check("mapped", mapped, torch.bool, (B,), dev)
+    _check("ec_bits", idx.ec_bits, torch.int32, (idx.ec_bits.shape[0], TW),
+           dev)
+    lib = _load()
+    out = torch.empty((B, TW), dtype=torch.int32, device=dev)
+    rc = lib.pa_ec_bits_classes(dev.index, B, M, TW, classes.data_ptr(),
+                                n_nodes.data_ptr(), mapped.data_ptr(),
+                                idx.ec_bits.data_ptr(), out.data_ptr(),
+                                _stream(dev))
+    _raise_on(lib, rc, "ec_bits (classes) kernel")
+    ec_bits_classes_cuda.launches += 1
+    return out
+
+
+ec_bits_classes_cuda.launches = 0
+
+
 def unpack_index_cuda(packed: dict, cfg: PackCfg):
     """K5: the bit-packed upload's arrays on the card (vals_lo [S] int32,
     vals_hi [S] int16, and keys_lo [S] int32 with keys_hi [S, PB-4] uint8,
@@ -595,9 +644,192 @@ def tx_counts_cuda(ec_bits: torch.Tensor, n_tx: int) -> torch.Tensor:
 
 tx_counts_cuda.launches = 0
 
+# ---------------------------------------------------------------------------
+# K10 and K11: the graph-sharded walk (parallel/graph_walk.py drives them;
+# its plain step functions have the same signatures)
+# ---------------------------------------------------------------------------
+
+
+def _gwalk_check(meta: MapMeta, kmeta, st, buf=None, reqs=()):
+    """The walk state st [B, NSTATE], the push buffer [B, max_nodes, 2] and
+    request buffers [S, B, 2], all int32 on one CUDA device -> (B, dev,
+    geo): geo the {S, Nb, WW} launch vector."""
+    from ..parallel.graph_walk import NSTATE, window_words
+
+    if not st.is_cuda:
+        raise ValueError("the CUDA kernels take CUDA tensors")
+    if meta.lazy_seeds or meta.distinct_cap > MAX_DISTINCT_CAP:
+        raise ValueError("the graph-sharded walk takes eager seeds and "
+                         f"distinct_cap <= {MAX_DISTINCT_CAP}")
+    S, Nb = kmeta.n_shards, kmeta.node_block
+    if S < 1 or Nb < 1 or meta.max_nodes < 1 or meta.n_positions < 1:
+        raise ValueError(f"shards {S}, node block {Nb}, max_nodes "
+                         f"{meta.max_nodes}, positions {meta.n_positions}")
+    dev, B = st.device, st.shape[0]
+    _check("st", st, torch.int32, (B, NSTATE), dev)
+    if buf is not None:
+        _check("buf", buf, torch.int32, (B, meta.max_nodes, 2), dev)
+    for r in reqs:
+        _check("req", r, torch.int32, (S, B, 2), dev)
+    geo = torch.tensor([S, Nb, window_words(meta)], dtype=torch.int64)
+    return B, dev, geo
+
+
+def gwalk_init_cuda(meta: MapMeta, kmeta, nh3, lens, st, buf, req_l,
+                    req_f) -> None:
+    """K10 init: nh3 [B, P, 3] and lens [B] -> the start state st, the push
+    buffer set to -1 and the first left and forward requests (see
+    csrc/gwalk.cu)."""
+    B, dev, geo = _gwalk_check(meta, kmeta, st, buf, (req_l, req_f))
+    _check("nh3", nh3, torch.int32, (B, meta.n_positions, 3), dev)
+    _check("lens", lens, torch.int32, (B,), dev)
+    lib = _load()
+    params = _params(meta, B)
+    rc = lib.pa_gwalk_init(params.data_ptr(), geo.data_ptr(),
+                           meta.left_extend_fraction, dev.index,
+                           nh3.data_ptr(), lens.data_ptr(), st.data_ptr(),
+                           buf.data_ptr(), req_l.data_ptr(), req_f.data_ptr(),
+                           _stream(dev))
+    _raise_on(lib, rc, "gwalk init kernel")
+    gwalk_init_cuda.launches += 1
+
+
+gwalk_init_cuda.launches = 0
+
+
+def gwalk_left_a_cuda(meta: MapMeta, kmeta, packed, back, st, req) -> None:
+    """K10 left_a: the left body up to the successor, from the rows and
+    windows back [S, B, 12 + WW]; writes the successor requests."""
+    B, dev, geo = _gwalk_check(meta, kmeta, st, None, (req,))
+    _check("packed", packed, torch.int32, (B, (meta.read_len + 15) // 16),
+           dev)
+    _check("back", back, torch.int32, (kmeta.n_shards, B, 12 + int(geo[2])),
+           dev)
+    lib = _load()
+    params = _params(meta, B)
+    rc = lib.pa_gwalk_left_a(params.data_ptr(), geo.data_ptr(), dev.index,
+                             packed.data_ptr(), back.data_ptr(),
+                             st.data_ptr(), req.data_ptr(), _stream(dev))
+    _raise_on(lib, rc, "gwalk left_a kernel")
+    gwalk_left_a_cuda.launches += 1
+
+
+gwalk_left_a_cuda.launches = 0
+
+
+def gwalk_left_b_cuda(meta: MapMeta, kmeta, back, st, buf, req) -> None:
+    """K10 left_b: push the successors from their rows back [S, B, 12];
+    writes the next left requests."""
+    B, dev, geo = _gwalk_check(meta, kmeta, st, buf, (req,))
+    _check("back", back, torch.int32, (kmeta.n_shards, B, 12), dev)
+    lib = _load()
+    params = _params(meta, B)
+    rc = lib.pa_gwalk_left_b(params.data_ptr(), geo.data_ptr(), dev.index,
+                             back.data_ptr(), st.data_ptr(), buf.data_ptr(),
+                             req.data_ptr(), _stream(dev))
+    _raise_on(lib, rc, "gwalk left_b kernel")
+    gwalk_left_b_cuda.launches += 1
+
+
+gwalk_left_b_cuda.launches = 0
+
+
+def gwalk_forward_cuda(meta: MapMeta, kmeta, packed, lens, nh3, back, st,
+                       buf, req) -> None:
+    """K10 forward: one forward body from the rows and windows back
+    [S, B, 12 + WW]; writes the next forward requests."""
+    B, dev, geo = _gwalk_check(meta, kmeta, st, buf, (req,))
+    _check("packed", packed, torch.int32, (B, (meta.read_len + 15) // 16),
+           dev)
+    _check("lens", lens, torch.int32, (B,), dev)
+    _check("nh3", nh3, torch.int32, (B, meta.n_positions, 3), dev)
+    _check("back", back, torch.int32, (kmeta.n_shards, B, 12 + int(geo[2])),
+           dev)
+    lib = _load()
+    params = _params(meta, B)
+    rc = lib.pa_gwalk_forward(params.data_ptr(), geo.data_ptr(), dev.index,
+                              packed.data_ptr(), lens.data_ptr(),
+                              nh3.data_ptr(), back.data_ptr(), st.data_ptr(),
+                              buf.data_ptr(), req.data_ptr(), _stream(dev))
+    _raise_on(lib, rc, "gwalk forward kernel")
+    gwalk_forward_cuda.launches += 1
+
+
+gwalk_forward_cuda.launches = 0
+
+
+def gwalk_finish_cuda(meta: MapMeta, kmeta, st, buf) -> MapResult:
+    """K10 finish: the walk state and push buffer -> MapResult, encoded as
+    K2 encodes it."""
+    B, dev, _geo = _gwalk_check(meta, kmeta, st, buf)
+    DC, M = meta.distinct_cap, meta.max_nodes
+    lib = _load()
+    mapped = torch.empty(B, dtype=torch.bool, device=dev)
+    mismatches = torch.empty(B, dtype=torch.int32, device=dev)
+    n_nodes = torch.empty(B, dtype=torch.int32, device=dev)
+    if DC > 0:
+        coverage = torch.empty(
+            B, dtype=torch.uint8 if meta.cov_out_8 else torch.int32,
+            device=dev)
+        ec_distinct = torch.empty(
+            (B, DC), dtype=torch.int16 if meta.ec_out_16 else torch.int32,
+            device=dev)
+        nodes = torch.empty((B, 0), dtype=torch.int32, device=dev)
+    else:
+        coverage = torch.empty(B, dtype=torch.int32, device=dev)
+        ec_distinct = torch.empty((B, 0), dtype=torch.int32, device=dev)
+        nodes = torch.empty((B, M), dtype=torch.int32, device=dev)
+    params = _params(meta, B)
+    rc = lib.pa_gwalk_finish(params.data_ptr(), dev.index, st.data_ptr(),
+                             buf.data_ptr(), mapped.data_ptr(),
+                             coverage.data_ptr(), mismatches.data_ptr(),
+                             n_nodes.data_ptr(), ec_distinct.data_ptr(),
+                             nodes.data_ptr(), _stream(dev))
+    _raise_on(lib, rc, "gwalk finish kernel")
+    gwalk_finish_cuda.launches += 1
+    return MapResult(
+        mapped=mapped, coverage=coverage, mismatches=mismatches, nodes=nodes,
+        n_nodes=n_nodes,
+        ec_bits=torch.empty((B, 0), dtype=torch.uint32, device=dev),
+        ec_distinct=ec_distinct)
+
+
+gwalk_finish_cuda.launches = 0
+
+
+def gfetch_cuda(kmeta, me: int, recv, node_rows, pool, ww: int):
+    """K11: the requests recv [S, B, 2] int32 that every shard sent shard
+    `me`, its block's node_rows [Nb, 12] int32 and flat pool [R] int32
+    (uint32 bit patterns) -> responses [S, B, 12 + ww] int32 (see
+    csrc/gfetch.cu); ww = 0 fetches rows alone."""
+    if not recv.is_cuda:
+        raise ValueError("the CUDA kernels take CUDA tensors")
+    dev = recv.device
+    S, Nb = kmeta.n_shards, kmeta.node_block
+    B = recv.shape[1]
+    if not 0 <= me < S or Nb < 1 or ww < 0:
+        raise ValueError(f"shard {me} of {S}, node block {Nb}, window {ww}")
+    _check("recv", recv, torch.int32, (S, B, 2), dev)
+    _check("node_rows", node_rows, torch.int32, (Nb, 12), dev)
+    _check("pool", pool, torch.int32, (pool.shape[0],), dev)
+    lib = _load()
+    out = torch.empty((S, B, 12 + ww), dtype=torch.int32, device=dev)
+    rc = lib.pa_gfetch(dev.index, S * B, me, Nb, ww, pool.shape[0],
+                       recv.data_ptr(), node_rows.data_ptr(), pool.data_ptr(),
+                       out.data_ptr(), _stream(dev))
+    _raise_on(lib, rc, "gfetch kernel")
+    gfetch_cuda.launches += 1
+    return out
+
+
+gfetch_cuda.launches = 0
+
+GWALK_WRAPPERS = (gwalk_init_cuda, gwalk_left_a_cuda, gwalk_left_b_cuda,
+                  gwalk_forward_cuda, gwalk_finish_cuda)
 WRAPPERS = (seed_tables_cuda, walk_cuda, stats_cuda, ec_bits_cuda,
             unpack_index_cuda, next_hit_cuda, pack_reads_cuda, route_cuda,
-            unscatter_cuda, mphf_dynamic_cuda, tx_counts_cuda)
+            unscatter_cuda, mphf_dynamic_cuda, tx_counts_cuda,
+            ec_bits_classes_cuda, *GWALK_WRAPPERS, gfetch_cuda)
 
 
 def reset_launch_counts() -> None:

@@ -729,17 +729,7 @@ class _WalkCtx:
         return (self.pool[p >> 4] >> ((p & 15) * 2)) & 3
 
     def segment(self, mismatch, maxm):
-        """Per-segment SNP budget over the first maxm compared bases ->
-        (matched, mm_add, premature).  The base that breaks the budget
-        counts as a mismatch but not as matched."""
-        allowed = self.meta.allowed_mismatches
-        in_range = self.j[None, :] < maxm[:, None]
-        c = torch.cumsum((mismatch & in_range).to(torch.int64), dim=1)
-        total = c[:, -1]
-        prem = total > allowed
-        matched = torch.where(prem, ((c <= allowed) & in_range).sum(1), maxm)
-        mm_add = torch.where(prem, allowed + 1, total)
-        return matched, mm_add, prem
+        return segment(mismatch, maxm, self.meta.allowed_mismatches)
 
     def kmer_at(self, reads, pos):
         """[n, L] reads, [n] positions -> [n, W] int64 k-mer words."""
@@ -752,6 +742,20 @@ class _WalkCtx:
             bitpos = 2 * (k - 1 - i)
             words[:, bitpos // 32] |= codes[:, i] << (bitpos % 32)
         return words
+
+
+def segment(mismatch: torch.Tensor, maxm: torch.Tensor, allowed: int):
+    """Per-segment SNP budget over the first maxm of the [B, n] compared
+    bases' mismatch flags -> (matched, mm_add, premature).  The base that
+    breaks the budget counts as a mismatch but not as matched."""
+    j = torch.arange(mismatch.shape[1], device=mismatch.device)
+    in_range = j[None, :] < maxm[:, None]
+    c = torch.cumsum((mismatch & in_range).to(torch.int64), dim=1)
+    total = c[:, -1]
+    prem = total > allowed
+    matched = torch.where(prem, ((c <= allowed) & in_range).sum(1), maxm)
+    mm_add = torch.where(prem, allowed + 1, total)
+    return matched, mm_add, prem
 
 
 def _push(buf, n_nodes, node, ec, do):
@@ -895,11 +899,23 @@ def ec_bitset_intersect(meta: MapMeta, idx: DeviceIndex,
     its first min(n_nodes, max_nodes) nodes (the node buffer holds only
     those), from all-ones; 0 for reads that are not mapped.  AND is
     idempotent, so a class met twice changes nothing."""
-    B, M = nodes.shape
-    dev = nodes.device
+    ec = idx.node_row[nodes.clamp(min=0).to(torch.int64), 3]
+    return ec_bitset_intersect_classes(
+        meta, idx, torch.where(nodes >= 0, ec, -1), n_nodes, mapped)
+
+
+def ec_bitset_intersect_classes(meta: MapMeta, idx: DeviceIndex,
+                                classes: torch.Tensor, n_nodes: torch.Tensor,
+                                mapped: torch.Tensor) -> torch.Tensor:
+    """ec_bitset_intersect from the class ids the walk pushed, [B, M]
+    int32 (-1 in empty slots), in place of node ids: the graph-sharded
+    walk's, whose replicated node_row is a placeholder.  Reads no
+    node_row."""
+    B, M = classes.shape
+    dev = classes.device
     n = n_nodes.to(torch.int64).clamp(max=M)
-    used = (torch.arange(M, device=dev)[None, :] < n[:, None]) & (nodes >= 0)
-    ec = idx.node_row[nodes.clamp(min=0).to(torch.int64), 3].to(torch.int64)
+    used = (torch.arange(M, device=dev)[None, :] < n[:, None]) & (classes >= 0)
+    ec = classes.clamp(min=0).to(torch.int64)
     bits = torch.full((B, meta.tx_words), -1, dtype=torch.int32, device=dev)
     for j in range(int(n.max()) if B else 0):
         bits &= torch.where(used[:, j, None], idx.ec_bits[ec[:, j]], -1)

@@ -37,9 +37,11 @@ def tiny_workload(n_tx=16, tx_len=300, B=64, L=64, seed=0):
 
 def dryrun_multichip(n_devices: int, loopback: bool = False,
                      device="cuda") -> dict:
-    """Map one batch with ShardedAligner and with the replicated-graph
-    KmerPartitionedAligner over an n_devices mesh; both must map the same
-    reads, and some.  Returns the mapped and count totals."""
+    """Map one batch with ShardedAligner and with the fully sharded
+    KmerPartitionedAligner (k-mer lookup and graph both partitioned,
+    shard_graph=True, as the reference's dry run runs it) over an
+    n_devices mesh; both must map the same reads, and some.  Returns the
+    mapped and count totals."""
     from ..config import AlignerConfig
     from ..index.builder import build_index
     from .mesh import ShardedAligner, make_mesh
@@ -62,15 +64,16 @@ def dryrun_multichip(n_devices: int, loopback: bool = False,
     print(f"dryrun_multichip: {n_devices} devices, batch {B}, "
           f"{out['mapped']} mapped, counts_sum={out['counts_sum']}")
     if n_devices & (n_devices - 1) == 0:
-        kp = KmerPartitionedAligner(image, cfg, mesh)
+        kp = KmerPartitionedAligner(image, cfg, mesh, shard_graph=True)
         res2, _ = kp.map_batch(reads, lens)
         mapped2 = kp.gather(res2).mapped.cpu().numpy()
         if not np.array_equal(mapped2, mapped):
             raise AssertionError("kpart and data-parallel mapped different "
                                  "reads")
         out["kpart_mapped"] = int(mapped2.sum())
-        print(f"dryrun_multichip(kpart, replicated graph): {n_devices} "
-              f"shards, {out['kpart_mapped']} mapped")
+        out["kpart_graph_sharded"] = kp.kmeta.node_block > 0
+        print(f"dryrun_multichip(kpart+graph-sharded): {n_devices} shards, "
+              f"{out['kpart_mapped']} mapped")
     return out
 
 

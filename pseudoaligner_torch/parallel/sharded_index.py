@@ -1,10 +1,10 @@
 """K-mer-partitioned index mode: a sharded lookup with all-to-all exchange.
 
-Port of `pseudoaligner_tpu/parallel/sharded_index.py`, replicated-graph
-half.  The k-mer index (per-shard sub-MPHFs with slot-ordered keys and
-values, the largest part of the index at transcriptome scale) is
-partitioned over the mesh by a hash of the k-mer; each shard holds one
-sub-index and the graph is replicated.  Mapping a batch, per shard:
+Port of `pseudoaligner_tpu/parallel/sharded_index.py`.  The k-mer index
+(per-shard sub-MPHFs with slot-ordered keys and values, the largest part
+of the index at transcriptome scale) is partitioned over the mesh by a
+hash of the k-mer; each shard holds one sub-index.  Mapping a batch, per
+shard:
 
 1. pack the shard's read codes on the device (`pack_reads_device`, K6
    csrc/pack.cu on a GPU);
@@ -14,9 +14,19 @@ sub-index and the graph is replicated.  Mapping a batch, per shard:
 3. exchange the buffers (all_to_all), probe the local sub-MPHF and verify
    the stored key (`dynamic_verified_lookup`, K8 csrc/mphfdyn.cu);
 4. exchange the results back and unscatter them into [b, P] seed tables
-   (`unscatter_seeds`, K7); the next-hit table (K1's next_hit entry), the
-   walk (K2) and, in the full-output shape, the bitset EC intersection (K4)
-   and the counts (K9) then run as in the replicated engine.
+   (`unscatter_seeds`, K7) and build the next-hit table (K1's next_hit
+   entry); then the walk:
+   - with the graph replicated (the default), the walk (K2) and, in the
+     full-output shape, the bitset EC intersection (K4) and the counts
+     (K9), as in the replicated engine;
+   - with `shard_graph=True`, the node rows and the 2-bit pool are split
+     into S contiguous node blocks as well (`build_sharded_graph`), so a
+     shard holds about 1/S of the whole index, and the walk fetches every
+     node row and compare window from the node's owner, one all_to_all
+     round trip per fetch (parallel/graph_walk.py, K10 csrc/gwalk.cu and
+     K11 csrc/gfetch.cu).  Its full output intersects the class ids the
+     walk pushed (K4's entry from class ids): the replicated node_row is a
+     placeholder in this mode.
 
 Send buffers hold `cap = slack * b * P / S` queries per destination
 (rounded up to 8, at least 64).  Queries past a full buffer are dropped
@@ -24,11 +34,6 @@ and counted (`overflow`); in the compact output their reads carry the -3
 exact re-map marker, in the full output map_batch raises.  Every buffer
 slot is probed, padding included, as the reference does: at S = 1 and
 slack 4 that is four probes per query.
-
-The graph-sharded mode (`shard_graph=True`: node rows and pool partitioned
-by node blocks, one routed fetch per walk iteration) is not ported: it
-puts an exchange inside every iteration of the walk, which K2 runs as one
-loop inside the kernel.  See ROADMAP.md, queue A item 9.
 """
 
 from __future__ import annotations
@@ -48,7 +53,9 @@ from ..ops.kmers import all_kmers
 from ..ops.map_kernel import (
     _as_i32,
     _as_tensor,
+    _pack_pool_rows,
     device_index_from_image,
+    ec_bitset_intersect_classes,
     lens_link_dtype,
     next_hit_table,
     pack_reads,
@@ -57,6 +64,7 @@ from ..ops.map_kernel import (
     walk_from_seeds,
 )
 from ..ops.mphf_lookup import dynamic_verified_lookup
+from .graph_walk import graph_walk
 from .mesh import concat_results, count_transcripts, gather_result, shard_batch
 
 OWNER_SEED = 0xA5A5_5A5A
@@ -82,6 +90,73 @@ class KPartMeta:
     n_shards: int
     n_levels: int
     cap: int  # per-destination send capacity
+    node_block: int = 0  # nodes per graph shard (0 = graph replicated)
+
+
+class GraphShards(NamedTuple):
+    """The graph partitioned by contiguous node-id blocks.  From
+    build_sharded_graph: numpy, stacked, axis 0 the shard; from
+    upload_graph: one shard's int32 tensors without that axis, the pool
+    flattened to its words."""
+
+    node_rows: object  # [S, Nb, 12] int32, start rebased to the block pool
+    pools: object  # [S, Rmax, 8] uint32 2-bit block pools, zero padded
+
+
+def build_sharded_graph(image: IndexImage, meta, n_shards: int):
+    """Partition the node rows and the sequence pool into S contiguous
+    node blocks -> (GraphShards of numpy arrays, Nb).
+
+    Block s owns nodes [s*Nb, (s+1)*Nb), Nb = ceil(N/S), and the pool
+    bases their sequences span, packed as the port's flat 2-bit pool with
+    meta.pool_pad zero bases at both ends.  Node-row column 0 is rebased to
+    start - (the block's first start) + pool_pad; columns 1-11 keep global
+    node ids.  Shards past the last node (N < S) get a zero block.  The
+    layout needs the pool to be the contiguous concatenation of the node
+    sequences in node order, which both index builders emit."""
+    N, S = image.n_nodes, n_shards
+    Nb = (N + S - 1) // S
+    starts = image.node_start.astype(np.int64)
+    lens = image.node_len.astype(np.int64)
+    # each block's slice [starts[lo], starts[hi-1] + lens[hi-1]) must cover
+    # every member's span: nondecreasing starts alone would let an earlier
+    # node run past the slice and read a truncated window.  A raise, not an
+    # assert, so python -O keeps the check
+    if not np.all(starts[1:] == starts[:-1] + lens[:-1]):
+        raise ValueError("seq_pool must be the contiguous concatenation of "
+                         "node sequences")
+    pad = meta.pool_pad
+    node_blocks, pool_blocks = [], []
+    for s in range(S):
+        lo, hi = s * Nb, min(N, (s + 1) * Nb)
+        nr = np.zeros((Nb, 12), dtype=np.int32)
+        if lo < hi:
+            base, end = starts[lo], starts[hi - 1] + lens[hi - 1]
+            pool_blocks.append(_pack_pool_rows(image.seq_pool[base:end], pad,
+                                               pad))
+            n = hi - lo
+            nr[:n, 0] = (starts[lo:hi] - base + pad).astype(np.int32)
+            nr[:n, 1] = image.node_len[lo:hi]
+            nr[:n, 2] = image.node_exts[lo:hi]
+            nr[:n, 3] = image.node_ec[lo:hi]
+            nr[:n, 4:8] = image.r_edge[lo:hi]
+            nr[:n, 8:12] = image.l_edge[lo:hi]
+        else:
+            pool_blocks.append(_pack_pool_rows(np.zeros(0, np.uint8), pad,
+                                               pad))
+        node_blocks.append(nr)
+    pools = np.zeros((S, max(p.shape[0] for p in pool_blocks), 8),
+                     dtype=np.uint32)
+    for s, p in enumerate(pool_blocks):
+        pools[s, : p.shape[0]] = p
+    return GraphShards(np.stack(node_blocks), pools), Nb
+
+
+def upload_graph(graph: GraphShards, shard: int, device) -> GraphShards:
+    """Shard `shard`'s block of a numpy GraphShards as int32 tensors on
+    `device`: node_rows [Nb, 12] and the flat pool words [Rmax * 8]."""
+    return GraphShards(_as_tensor(graph.node_rows[shard], device),
+                       _as_tensor(graph.pools[shard], device).reshape(-1))
 
 
 def build_sharded_lookup(image: IndexImage, n_shards: int):
@@ -257,29 +332,55 @@ def _routed_seed_tables(meta, kmeta: KPartMeta, lookups: list,
     return out
 
 
-def make_kpart_step(meta, kmeta: KPartMeta, mesh, n_tx: int):
-    """The k-mer-partitioned step: fn(idx, lookups, codes, lens) ->
-    (results, counts, overflow), where lookups, codes [b, L] and lens hold
-    one tensor (set) per local shard; results is one MapResult per local
-    shard, counts [n_tx] int32 and overflow [] int32 sums over the mesh."""
-    P = meta.n_positions
+def _intersect_classes(meta, idx, classes, res):
+    if classes.is_cuda:
+        from ..ops.kernels import ec_bits_classes_cuda
 
-    def step(idx, lookups: list, codes: list, lens: list):
+        return ec_bits_classes_cuda(meta, idx, classes, res.n_nodes,
+                                    res.mapped)
+    return ec_bitset_intersect_classes(meta, idx, classes, res.n_nodes,
+                                       res.mapped)
+
+
+def make_kpart_step(meta, kmeta: KPartMeta, mesh, n_tx: int):
+    """The k-mer-partitioned step: fn(idx, lookups, codes, lens, graphs=None,
+    stats=None, steps=None) -> (results, counts, overflow), where lookups,
+    codes [b, L] and lens hold one tensor (set) per local shard, and, with
+    kmeta.node_block > 0, graphs one GraphShards block per local shard
+    (upload_graph); results is one MapResult per local shard, counts
+    [n_tx] int32 and overflow [] int32 sums over the mesh.  `stats`
+    collects the graph-sharded walk's loop counts and `steps` overrides
+    its step functions (graph_walk)."""
+    P = meta.n_positions
+    full_bits = meta.tx_words > 0 and meta.distinct_cap == 0
+
+    def step(idx, lookups: list, codes: list, lens: list, graphs=None,
+             stats=None, steps=None):
         lens = [n.to(torch.int32) for n in lens]
         packed = [pack_reads(c.to(torch.int32).contiguous()) for c in codes]
         seeds = _routed_seed_tables(meta, kmeta, lookups, packed, lens, mesh)
-        results = []
-        for pk, ln, (node, off, _over, dropped) in zip(packed, lens, seeds):
-            nh3 = _next_hit(node, off, ln, meta.k, P)
-            res = walk_from_seeds(meta, idx, pk, ln, nh3)
-            if meta.distinct_cap > 0:
-                # routing-overflow reads ride the compact -3 channel: the
-                # host re-maps them exactly, so a rare full buffer costs a
-                # few host re-maps instead of a batch error
+        nh3 = [_next_hit(node, off, ln, meta.k, P)
+               for ln, (node, off, _over, _drop) in zip(lens, seeds)]
+        if kmeta.node_block > 0:
+            results = []
+            for res, classes in graph_walk(meta, kmeta, graphs, packed, lens,
+                                           nh3, mesh, steps, stats):
+                if full_bits:
+                    # the pushed class ids, never the placeholder node_row
+                    bits = _intersect_classes(meta, idx, classes, res)
+                    res = res._replace(ec_bits=bits.view(torch.uint32))
+                results.append(res)
+        else:
+            results = [walk_from_seeds(meta, idx, pk, ln, nh)
+                       for pk, ln, nh in zip(packed, lens, nh3)]
+        if meta.distinct_cap > 0:
+            # routing-overflow reads ride the compact -3 channel: the host
+            # re-maps them exactly, so a rare full buffer costs a few host
+            # re-maps instead of a batch error
+            for res, (_node, _off, _over, dropped) in zip(results, seeds):
                 ecd = res.ec_distinct
                 ecd[:, -1] = torch.where(dropped, -3, ecd[:, -1])
-            results.append(res)
-        if meta.tx_words > 0 and meta.distinct_cap == 0:
+        if full_bits:
             # bitset counts exist only in the full-output shape; compact
             # serving counts on the host
             counts = mesh.all_reduce([count_transcripts(r.ec_bits, n_tx)
@@ -293,8 +394,13 @@ def make_kpart_step(meta, kmeta: KPartMeta, mesh, n_tx: int):
 
 
 class KmerPartitionedAligner:
-    """Mapping engine with the k-mer index sharded across the mesh and the
-    graph replicated on every shard."""
+    """Mapping engine with the k-mer index sharded across the mesh.
+
+    shard_graph=True partitions the node rows and the sequence pool by
+    contiguous node-id blocks too, one per shard: each shard then holds
+    about 1/S of the whole index, at the cost of an all_to_all round trip
+    per graph access of the walk (the mode for indexes beyond one card's
+    memory).  shard_graph=False replicates the graph (fastest per card)."""
 
     def __init__(
         self,
@@ -304,11 +410,6 @@ class KmerPartitionedAligner:
         slack: float = 4.0,
         shard_graph: bool = False,
     ):
-        if shard_graph:
-            raise NotImplementedError(
-                "shard_graph=True (the graph-sharded walk, a routed fetch "
-                "per iteration) is not ported yet: ROADMAP.md, queue A item "
-                "9, next slice")
         self.mesh = mesh
         S = mesh.size
         if S & (S - 1):
@@ -332,7 +433,12 @@ class KmerPartitionedAligner:
         per_dev_queries = b_local * meta.n_positions
         cap = max(64, int(slack * per_dev_queries / S))
         cap = (cap + 7) // 8 * 8  # a multiple of 8
-        self.kmeta = KPartMeta(n_shards=S, n_levels=n_levels, cap=cap)
+        node_block = 0
+        graph_np = None
+        if shard_graph:
+            graph_np, node_block = build_sharded_graph(image, meta, S)
+        self.kmeta = KPartMeta(n_shards=S, n_levels=n_levels, cap=cap,
+                               node_block=node_block)
         W = image.kmer_keys.shape[1]
         # the sharded lookup replaces the seed structures: placeholders
         graph = dataclasses.replace(
@@ -345,9 +451,21 @@ class KmerPartitionedAligner:
             kmer_node=np.zeros(1, np.int32),
             kmer_offset=np.zeros(1, np.int32),
         )
+        if shard_graph:
+            # the graph rides in the shards' blocks instead
+            graph = dataclasses.replace(
+                graph, pool_rows=np.zeros((1, 8), np.uint32),
+                node_row=np.zeros((1, 12), np.int32))
         self.dev = upload(graph, mesh.device)
         self.lookups = [upload_lookup(lookup_np, r, mesh.device)
                         for r in mesh.ranks]
+        self.graphs = (None if graph_np is None else
+                       [upload_graph(graph_np, r, mesh.device)
+                        for r in mesh.ranks])
+        # the graph-sharded walk's loop counts, summed over map_batch calls,
+        # and its step functions (None: graph_walk's default by device)
+        self.walk_stats: dict = {}
+        self.walk_steps = None
         self._step = make_kpart_step(meta, self.kmeta, mesh, self.n_tx)
 
     def serving_aligner(self):
@@ -375,7 +493,9 @@ class KmerPartitionedAligner:
         codes, ln = shard_batch(np.asarray(reads).astype(np.int32),
                                 np.asarray(lens).astype(ldt), self.mesh)
         results, counts, overflow = self._step(self.dev, self.lookups, codes,
-                                               ln)
+                                               ln, self.graphs,
+                                               self.walk_stats,
+                                               self.walk_steps)
         if self.meta.distinct_cap == 0 and int(overflow) > 0:
             # the full output has no -3 channel; compact serving flags the
             # dropped reads -3 instead and never waits on this scalar

@@ -44,9 +44,10 @@ def test_port_runs_without_the_reference(tmp_path):
     """In a process where pseudoaligner_tpu and jax cannot be imported,
     chip_smoke and the port (its multi-device layer too) import, and the
     port's CLI builds an index, maps on the CPU under the cuckoo and MPHF
-    seed indexes, maps pairs (checked against the golden pair rule) and
-    counts cells, on chip_smoke's own recipes; the multi-device dry run
-    runs on two loopback shards."""
+    seed indexes, maps pairs (checked against the golden pair rule),
+    counts cells, and runs mappability, idxstats and inspect, on
+    chip_smoke's own recipes; the multi-device dry run (graph-sharded
+    k-mer-partitioned step included) runs on two loopback shards."""
     code = textwrap.dedent(f"""
         import io, sys
 
@@ -121,6 +122,21 @@ def test_port_runs_without_the_reference(tmp_path):
                                             .split())
         assert n_cells > 0 and n_cls > 0 and n_entries > 0
 
+        # the host-only subcommands
+        assert cli.main(["mappability", "-i", idx, "-o", d + "/mp"]) == 0
+        with open(d + "/mp/tx_mappability.tsv") as f:
+            assert len(f.read().splitlines()) == len(seqs) + 1
+        assert cli.main(["mappability", "-i", idx, "-k", "64", "-o",
+                         d + "/mp64"]) == 1
+        rc, _ = chip_smoke.run_cli(["idxstats", "-i", idx], d + "/idxstats")
+        assert rc == 0, rc
+        with open(d + "/idxstats", "rb") as f:
+            assert f.read().count(b"\\n") == image.n_nodes
+        rc, _ = chip_smoke.run_cli(["inspect", "-i", idx], d + "/inspect")
+        assert rc == 0, rc
+        with open(d + "/inspect", "rb") as f:
+            assert f.read().startswith(b"k\\t20\\n")
+
         # chip_smoke's bounds of the bitset and unpack kernels
         full = AlignerConfig(k=20, batch_size=128, max_read_len=60,
                              distinct_cap=0)
@@ -143,6 +159,7 @@ def test_port_runs_without_the_reference(tmp_path):
         # the multi-device layer: the dry run over two loopback shards
         out = dryrun.dryrun_multichip(2, loopback=True, device="cpu")
         assert out["kpart_mapped"] == out["mapped"] > 0
+        assert out["kpart_graph_sharded"]
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "pseudoaligner_tpu")]
         assert not bad, bad

@@ -1,7 +1,9 @@
 """The CUDA kernels (K1 seed and its next_hit entry, K2 walk, K3 stats,
-K4 bitset EC intersection, K5 packed-upload unpack, K6 read pack, K7 route
-and unscatter, K8 dynamic MPHF probe, K9 transcript counts) against their
-plain PyTorch versions, under each seed index (cuckoo, bucket1, MPHF).
+K4 bitset EC intersection and its entry from class ids, K5 packed-upload
+unpack, K6 read pack, K7 route and unscatter, K8 dynamic MPHF probe, K9
+transcript counts, K10 the graph-sharded walk's steps, K11 its routed
+fetch) against their plain PyTorch versions, under each seed index
+(cuckoo, bucket1, MPHF).
 
 The card tests carry the `gpu` marker and skip without a CUDA device;
 chip_smoke.py runs the same comparison at full size on the card.  The CPU
@@ -387,6 +389,108 @@ def test_multi_device_kernels_match_plain_on_cuda(S, cap_scale):
         assert torch.equal(kernels.tx_counts_cuda(bits, n_tx),
                            mesh.tx_compat_counts(bits, n_tx))
     torch.cuda.synchronize()
+
+
+def _graph_case(S, shape, device):
+    """A graph-sharded KmerPartitionedAligner over S loopback shards on
+    `device` and a batch of the _data reads (a multiple of S rows) ->
+    (aligner, the same engine with the graph replicated, codes, lens)."""
+    from pseudoaligner_torch.parallel import sharded_index as si
+    from pseudoaligner_torch.parallel.mesh import make_mesh
+
+    k, L, kw = SHAPES[shape]
+    image, reads = _data(np.random.default_rng(k + L + S), k, L)
+    B = len(reads) // 8 * 8
+    codes = np.zeros((B, L), np.int32)
+    lens = np.zeros(B, np.int32)
+    for j, w in enumerate(reads[:B - 3]):  # three empty rows
+        codes[j, : len(w)] = w
+        lens[j] = len(w)
+    cfg = AlignerConfig(k=k, max_read_len=L, batch_size=B,
+                        **dict(kw, lazy_seeds=False))
+    made = [si.KmerPartitionedAligner(
+        image, cfg, make_mesh(S, loopback=True, device=device),
+        shard_graph=sg) for sg in (True, False)]
+    return made[0], made[1], codes, lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("shape", ["serving", "full_eager_seeds", "k64"])
+def test_graph_walk_kernels_match_plain_on_cuda(S, shape):
+    """Every launch of K10's steps and K11 in a graph-sharded walk against
+    its plain step on copies of the same inputs, tolerance 0; the walk's
+    MapResult and counts equal the replicated engine's (K2, K4), and in
+    the full-output shape K4's entry from class ids equals its plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pseudoaligner_torch.parallel import graph_walk as gw
+
+    kp, rep, codes, lens = _graph_case(S, shape, "cuda")
+    err = {}
+    kp.walk_steps = gw.paired_steps(gw.kernel_steps(), gw.PLAIN_STEPS, err)
+    before = [fn.launches for fn in kernels.GWALK_WRAPPERS] + [
+        kernels.gfetch_cuda.launches]
+    got, counts = kp.map_batch(codes, lens)
+    want, want_counts = rep.map_batch(codes, lens)
+    torch.cuda.synchronize()
+    after = [fn.launches for fn in kernels.GWALK_WRAPPERS] + [
+        kernels.gfetch_cuda.launches]
+    assert set(err) == set(gw.Steps._fields) and not any(err.values()), err
+    assert all(a > b for a, b in zip(after, before))
+    for f in want._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.uint32
+                           else a, b.view(torch.int32)
+                           if b.dtype == torch.uint32 else b), f
+    assert torch.equal(counts, want_counts)
+    if kp.meta.tx_words and not kp.meta.distinct_cap:
+        classes = torch.where(got.nodes >= 0, rep.dev.node_row[
+            got.nodes.clamp(min=0).long(), 3], -1)
+        args = (kp.meta, kp.dev, classes, got.n_nodes, got.mapped)
+        assert torch.equal(kernels.ec_bits_classes_cuda(*args),
+                           mk.ec_bitset_intersect_classes(*args))
+
+
+def test_graph_walk_plain_steps_on_cpu():
+    """On CPU tensors the graph-sharded walk takes the plain steps: no
+    K10, K11 or K4-from-classes launch; its results equal the replicated
+    engine's; the wrappers refuse CPU tensors."""
+    from pseudoaligner_torch.parallel import graph_walk as gw
+
+    kp, rep, codes, lens = _graph_case(2, "full_eager_seeds", "cpu")
+    before = [fn.launches for fn in kernels.WRAPPERS]
+    got, counts = kp.map_batch(codes, lens)
+    want, want_counts = rep.map_batch(codes, lens)
+    assert [fn.launches for fn in kernels.WRAPPERS] == before
+    for f in want._fields:
+        assert torch.equal(getattr(got, f).view(torch.int32)
+                           if f == "ec_bits" else getattr(got, f),
+                           getattr(want, f).view(torch.int32)
+                           if f == "ec_bits" else getattr(want, f)), f
+    assert torch.equal(counts, want_counts) and counts.sum() > 0
+    meta, km, S, B = kp.meta, kp.kmeta, 2, 8
+    st = torch.zeros((B, gw.NSTATE), dtype=torch.int32)
+    buf = torch.zeros((B, meta.max_nodes, 2), dtype=torch.int32)
+    req = torch.zeros((S, B, 2), dtype=torch.int32)
+    g = kp.graphs[0]
+    for call in (
+            lambda: kernels.gwalk_init_cuda(
+                meta, km, torch.zeros((B, meta.n_positions, 3),
+                                      dtype=torch.int32),
+                torch.zeros(B, dtype=torch.int32), st, buf, req, req),
+            lambda: kernels.gwalk_left_b_cuda(
+                meta, km, torch.zeros((S, B, 12), dtype=torch.int32), st,
+                buf, req),
+            lambda: kernels.gwalk_finish_cuda(meta, km, st, buf),
+            lambda: kernels.gfetch_cuda(km, 0, req, g.node_rows, g.pools, 4),
+            lambda: kernels.ec_bits_classes_cuda(
+                meta, kp.dev, buf[:, :, 1].contiguous(), st[:, 0],
+                st[:, 0] > 0)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
 
 
 def test_cpu_tensors_take_the_plain_passes_multi_device():

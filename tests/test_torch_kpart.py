@@ -2,8 +2,10 @@
 
 The sharded lookup (per-shard sub-MPHFs), the dynamic-level MPHF probe,
 the routed seed tables (owner hash, stable bucketing into fixed-capacity
-buffers, the -3 lanes of routing overflow) and the KmerPartitionedAligner
-with a replicated graph, at S = 1, 2, 4 and 8 shards: the reference on its
+buffers, the -3 lanes of routing overflow), the graph partition
+(build_sharded_graph) and the KmerPartitionedAligner with a replicated
+graph and with a sharded one (shard_graph=True: the routed walk of
+parallel/graph_walk.py), at S = 1, 2, 4 and 8 shards: the reference on its
 virtual 8-device CPU mesh, the port on a loopback mesh of S shards on the
 CPU.  Equal with tolerance 0, dtypes and shapes included; the serving
 aligner's emitted bytes (single-end, paired, `count`) equal."""
@@ -29,6 +31,7 @@ from pseudoaligner_tpu.parallel.sharded_index import (
     KPartMeta as RefKPartMeta,
     ShardedLookup as RefLookup,
     _routed_seed_tables as ref_routed,
+    build_sharded_graph as ref_build_graph,
     build_sharded_lookup as ref_build_lookup,
 )
 from pseudoaligner_tpu.singlecell import count_single_cell as ref_count
@@ -62,7 +65,9 @@ B, L = 64, 64
 def data():
     """Isoform families (short unitigs, many classes) and a batch of fuzz
     reads (exact, SNP-bearing, reversed and random windows) with short
-    reads and empty rows: (reference image, port image, codes, lens)."""
+    reads, empty rows and left-extension reads (a SNP at base 13 puts the
+    first hit past the left gate, so the left loop walks back):
+    (reference image, port image, codes, lens)."""
     rng = np.random.default_rng(4040)
     seqs, names, gmap = family_transcripts(rng, n_genes=4, n_iso=5)
     image = build(seqs, names, gmap, k=20)
@@ -74,6 +79,12 @@ def data():
             c = c[:24]  # short reads: most positions invalid
         codes[j, : len(c)] = c
         lens[j] = len(c)
+    for j in range(1, B - 4, 6):
+        t = seqs[j % len(seqs)]
+        s0 = int(rng.integers(0, len(t) - L))
+        codes[j] = t[s0:s0 + L]
+        codes[j, 13] = (codes[j, 13] + 1) % 4
+        lens[j] = L
     return image, mk.image_from_reference(image), codes, lens
 
 
@@ -92,6 +103,62 @@ def test_build_sharded_lookup_matches_reference(data, S):
         a, b = getattr(want, f), getattr(got, f)
         assert a.dtype == b.dtype and a.shape == b.shape, f
         assert np.array_equal(a, b), f
+
+
+def _bases(words) -> np.ndarray:
+    """2-bit base codes of flat uint32 words (base i at bits 2*(i%16) of
+    word i/16)."""
+    w = np.asarray(words, dtype=np.uint32).reshape(-1)
+    sh = (2 * np.arange(16)).astype(np.uint32)
+    return ((w[:, None] >> sh) & 3).reshape(-1).astype(np.uint8)
+
+
+def _ref_flat_words(rows, stride: int) -> np.ndarray:
+    """The reference's [R, 8] pool rows as flat words: rows overlap and
+    start every stride // 16 words when stride > 0."""
+    if not stride:
+        return rows.reshape(-1)
+    sw = stride // 16
+    flat = np.zeros((rows.shape[0] - 1) * sw + 8, dtype=np.uint32)
+    for r in range(rows.shape[0]):
+        flat[r * sw:r * sw + 8] = rows[r]
+    return flat
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+def test_build_sharded_graph_matches_reference(data, S):
+    """Node rows equal the reference's (start rebased to the block pool,
+    global edge ids); each block's flat pool holds the reference block
+    pool's bases, base for base over the block's padded span."""
+    image, pimage, _, _ = data
+    _, meta = device_index_from_image(image, AlignerConfig(**_cfg("full")))
+    _, pmeta = mk.device_index_from_image(pimage,
+                                          PortConfig(**_cfg("full")))
+    assert pmeta.pool_pad == meta.pool_pad
+    want, nb_want = ref_build_graph(image, meta, S)
+    got, nb = si.build_sharded_graph(pimage, pmeta, S)
+    assert nb == nb_want == -(-image.n_nodes // S)
+    rows = np.asarray(want.node_rows)
+    assert got.node_rows.dtype == rows.dtype == np.int32
+    assert np.array_equal(got.node_rows, rows)
+    pad = meta.pool_pad
+    for s in range(S):
+        lo, hi = s * nb, min(image.n_nodes, (s + 1) * nb)
+        span = 0
+        if lo < hi:
+            span = int(image.node_start[hi - 1] + image.node_len[hi - 1]
+                       - image.node_start[lo])
+        n = pad + span + pad
+        ref = _bases(_ref_flat_words(np.asarray(want.pools[s]),
+                                     meta.pool_stride))[:n]
+        port = _bases(got.pools[s])[:n]
+        assert got.pools.dtype == np.uint32
+        assert np.array_equal(port, ref), s
+        assert not port[:pad].any() and not port[pad + span:].any()
+        if lo < hi:
+            seq = np.asarray(image.seq_pool)[image.node_start[lo]:
+                                             image.node_start[lo] + span]
+            assert np.array_equal(port[pad:pad + span], seq)
 
 
 @pytest.mark.parametrize("S", [1, 2, 4, 8])
@@ -194,25 +261,72 @@ def test_routed_seed_tables_match_reference(data, S, cap):
     assert (node >= 0).any()
 
 
-@pytest.mark.parametrize("S", [1, 2, 4, 8])
-@pytest.mark.parametrize("shape", list(SHAPES))
-def test_kpart_matches_reference(data, S, shape):
+@pytest.mark.parametrize("shape,S,shard_graph", [
+    pytest.param(shape, S, sg, id=f"{shape}-{S}" + ("-graph" if sg else ""))
+    for sg in (False, True) for S in (1, 2, 4, 8) for shape in SHAPES])
+def test_kpart_matches_reference(data, S, shape, shard_graph):
     """Every MapResult field and the counts, full-output and compact
-    shapes, short reads included."""
+    shapes, short reads included; with the graph replicated and sharded.
+    The graph-sharded full output intersects the pushed class ids (its
+    replicated node_row is a placeholder): ec_bits and counts equal."""
     image, pimage, codes, lens = data
     kw = _cfg(shape)
-    want, want_counts = RefKPart(image, AlignerConfig(**kw),
-                                 ref_make_mesh(S)).map_batch(codes, lens)
+    want, want_counts = RefKPart(
+        image, AlignerConfig(**kw), ref_make_mesh(S),
+        shard_graph=shard_graph).map_batch(codes, lens)
     kp = si.KmerPartitionedAligner(pimage, PortConfig(**kw),
-                                   make_mesh(S, loopback=True, device="cpu"))
+                                   make_mesh(S, loopback=True, device="cpu"),
+                                   shard_graph=shard_graph)
     got, counts = kp.map_batch(codes, lens)
-    assert_results_equal(want, got, f"kpart S={S} {shape}")
+    assert_results_equal(want, got, f"kpart S={S} {shape} {shard_graph}")
     want_counts = np.asarray(want_counts)
     assert counts.dtype == torch.int32 and counts.shape == want_counts.shape
     assert np.array_equal(counts.numpy(), want_counts)
     assert got.mapped.any()
     if shape == "full":
-        assert want_counts.sum() > 0
+        assert want_counts.sum() > 0 and np.asarray(want.ec_bits).any()
+    if shard_graph:
+        st = kp.walk_stats
+        assert st["left_iters"] > 0 and st["forward_iters"] > 0
+        assert st["all_to_alls"] == 2 * st["fetches"] == 2 * (
+            2 * st["left_iters"] + st["forward_iters"])
+        if shape == "compact":
+            # the serving caps (2 left, 3 forward): at most 7 fetches and
+            # 5 liveness syncs per walk
+            assert st["fetches"] <= 7 and st["syncs"] <= 5
+    else:
+        assert kp.graphs is None and kp.kmeta.node_block == 0
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_kpart_graph_sharded_with_empty_shards(shape):
+    """Fewer nodes than shards (N < S): the shards past the last node hold
+    a zero block and serve no request; results equal the reference's."""
+    rng = np.random.default_rng(515)
+    seqs = [rng.integers(0, 4, 300).astype(np.uint8) for _ in range(2)]
+    names = ["t0", "t1"]
+    image = build(seqs, names, {"t0": "g0", "t1": "g1"}, k=20)
+    S = 8
+    assert image.n_nodes < S
+    reads = _fuzz_reads(rng, seqs, k=20, n=B, L=L)
+    codes = np.zeros((B, L), np.uint8)
+    lens = np.zeros(B, np.int32)
+    for j, (_, c) in enumerate(reads):
+        codes[j, : len(c)] = c
+        lens[j] = len(c)
+    kw = _cfg(shape)
+    want, want_counts = RefKPart(image, AlignerConfig(**kw),
+                                 ref_make_mesh(S),
+                                 shard_graph=True).map_batch(codes, lens)
+    kp = si.KmerPartitionedAligner(
+        mk.image_from_reference(image), PortConfig(**kw),
+        make_mesh(S, loopback=True, device="cpu"), shard_graph=True)
+    assert kp.kmeta.node_block == 1
+    assert not kp.graphs[-1].node_rows.any()  # an empty shard
+    got, counts = kp.map_batch(codes, lens)
+    assert_results_equal(want, got, f"kpart N<S {shape}")
+    assert np.array_equal(counts.numpy(), np.asarray(want_counts))
+    assert got.mapped.any()
 
 
 def test_kpart_routing_overflow_lanes_match_reference(data):
@@ -220,16 +334,27 @@ def test_kpart_routing_overflow_lanes_match_reference(data):
     dropped reads carry -3 in the last ec_distinct column exactly where
     the reference puts it, and their records re-map exactly; the full
     output raises."""
+    _routing_overflow_case(data, shard_graph=False)
+
+
+def test_kpart_graph_sharded_routing_overflow_lanes_match_reference(data):
+    """The same with the graph sharded: the -3 lanes of routing overflow
+    ride the graph-sharded walk's compact output too."""
+    _routing_overflow_case(data, shard_graph=True)
+
+
+def _routing_overflow_case(data, shard_graph):
     image, pimage, codes, lens = data
     codes = codes.copy()
     lens = lens.copy()
     codes[B // 2:] = 1
     lens[B // 2:] = L
     kw = _cfg("compact")
-    ref = RefKPart(image, AlignerConfig(**kw), ref_make_mesh(8), slack=0.05)
+    ref = RefKPart(image, AlignerConfig(**kw), ref_make_mesh(8), slack=0.05,
+                   shard_graph=shard_graph)
     kp = si.KmerPartitionedAligner(
         pimage, PortConfig(**kw), make_mesh(8, loopback=True, device="cpu"),
-        slack=0.05)
+        slack=0.05, shard_graph=shard_graph)
     assert kp.kmeta.cap == ref.kmeta.cap
     want, _ = ref.map_batch(codes, lens)
     got, _ = kp.map_batch(codes, lens)
@@ -248,7 +373,8 @@ def test_kpart_routing_overflow_lanes_match_reference(data):
             base.map_batch_device(codes, lens), batch)]
     kp_full = si.KmerPartitionedAligner(
         pimage, PortConfig(**_cfg("full")),
-        make_mesh(8, loopback=True, device="cpu"), slack=0.05)
+        make_mesh(8, loopback=True, device="cpu"), slack=0.05,
+        shard_graph=shard_graph)
     with pytest.raises(RuntimeError, match="routing overflow"):
         kp_full.map_batch(codes, lens)
 
@@ -272,6 +398,16 @@ def test_kpart_serving_surface_matches_reference(data, tmp_path):
     and `count`'s output files equal the reference's kpart serving
     aligner's, under a serving config whose caps flag reads for the exact
     re-map."""
+    _serving_surface_case(data, tmp_path, shard_graph=False)
+
+
+def test_kpart_graph_sharded_serving_surface_matches_reference(data,
+                                                               tmp_path):
+    """The same with the graph sharded (shard_graph=True)."""
+    _serving_surface_case(data, tmp_path, shard_graph=True)
+
+
+def _serving_surface_case(data, tmp_path, shard_graph):
     image, pimage, _, _ = data
     rng = np.random.default_rng(77)
     seqs, _, _ = family_transcripts(np.random.default_rng(4040), n_genes=4,
@@ -290,11 +426,11 @@ def test_kpart_serving_surface_matches_reference(data, tmp_path):
     kw = dict(k=20, batch_size=64, max_read_len=64, max_nodes=9,
               distinct_cap=3, max_walk_iters=3, max_left_iters=2,
               lazy_seeds=False, left_compact=0.0)
-    ref = RefKPart(image, AlignerConfig(**kw),
-                   ref_make_mesh(2)).serving_aligner()
+    ref = RefKPart(image, AlignerConfig(**kw), ref_make_mesh(2),
+                   shard_graph=shard_graph).serving_aligner()
     srv = si.KmerPartitionedAligner(
-        pimage, PortConfig(**kw),
-        make_mesh(2, loopback=True, device="cpu")).serving_aligner()
+        pimage, PortConfig(**kw), make_mesh(2, loopback=True, device="cpu"),
+        shard_graph=shard_graph).serving_aligner()
     out = {}
     for tag, al in (("ref", ref), ("port", srv)):
         single, paired = io.BytesIO(), io.BytesIO()
@@ -315,11 +451,19 @@ def test_kpart_serving_surface_matches_reference(data, tmp_path):
 
 
 def test_shard_graph_is_not_ported(data):
+    """shard_graph=True builds S blocks of ceil(N/S) node rows, one per
+    shard, and leaves a placeholder node_row and pool in the replicated
+    arrays; a mesh that is not a power of two is refused."""
     _, pimage, _, _ = data
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        si.KmerPartitionedAligner(pimage, PortConfig(**_cfg("full")),
-                                  make_mesh(2, loopback=True, device="cpu"),
-                                  shard_graph=True)
+    for S in (2, 4):
+        kp = si.KmerPartitionedAligner(
+            pimage, PortConfig(**_cfg("full")),
+            make_mesh(S, loopback=True, device="cpu"), shard_graph=True)
+        nb = -(-pimage.n_nodes // S)
+        assert kp.kmeta.node_block == nb and len(kp.graphs) == S
+        assert all(g.node_rows.shape == (nb, 12) for g in kp.graphs)
+        assert kp.dev.node_row.shape == (1, 12)
+        assert kp.dev.pool_rows.numel() == 8
     with pytest.raises(ValueError, match="power of two"):
         si.KmerPartitionedAligner(pimage, PortConfig(**_cfg("full")),
                                   make_mesh(3, loopback=True, device="cpu"))

@@ -252,15 +252,18 @@ _CHILD = textwrap.dedent("""
     merged = map_fastq_multihost(image, cfg, {fastq!r}, out, device="cpu")
     np.save(os.path.join(out, f"counts-{{pid}}.npy"), merged)
     data = np.load({reads!r})
-    kp = KmerPartitionedAligner(
-        image, AlignerConfig(**{kw!r}), make_mesh(2, device="cpu"))
-    res, counts = kp.map_batch(data["codes"], data["lens"])
-    assert res.mapped.shape[0] == data["codes"].shape[0] // 2
-    full = kp.gather(res)
-    fields = {{f: (t.view(torch.int32) if t.dtype == torch.uint32 else t)
-              .numpy() for f, t in zip(full._fields, full)}}
-    np.savez(os.path.join(out, f"kpart-{{pid}}.npz"), counts=counts.numpy(),
-             **fields)
+    for tag, sg in (("kpart", False), ("kpartg", True)):
+        kp = KmerPartitionedAligner(
+            image, AlignerConfig(**{kw!r}), make_mesh(2, device="cpu"),
+            shard_graph=sg)
+        res, counts = kp.map_batch(data["codes"], data["lens"])
+        assert res.mapped.shape[0] == data["codes"].shape[0] // 2
+        full = kp.gather(res)
+        fields = {{f: (t.view(torch.int32) if t.dtype == torch.uint32 else t)
+                  .numpy() for f, t in zip(full._fields, full)}}
+        np.savez(os.path.join(out, f"{{tag}}-{{pid}}.npz"),
+                 counts=counts.numpy(), **fields)
+    torch.distributed.destroy_process_group()
     print("child", pid, "ok")
 """)
 
@@ -269,8 +272,10 @@ def test_two_processes_over_gloo(data, tmp_path):
     """Two OS processes joined by torch.distributed (gloo): the multi-host
     map's merged counts equal a one-process run's in both, the part files
     hold every read once, and the k-mer-partitioned step across the two
-    processes (its all_to_all and all_reduce over gloo) gives every field
-    and the counts of the loopback mesh's run."""
+    processes (its all_to_all and all_reduce over gloo), with the graph
+    replicated and with it sharded (the routed walk's fetches and
+    liveness over gloo), gives every field and the counts of the loopback
+    mesh's run."""
     image, pimage, codes, lens, fq, idx = data
     reads = str(tmp_path / "reads.npz")
     np.savez(reads, codes=codes, lens=lens)
@@ -314,8 +319,9 @@ def test_two_processes_over_gloo(data, tmp_path):
     kp = KmerPartitionedAligner(pimage, PortConfig(**kw),
                                 make_mesh(2, loopback=True, device="cpu"))
     ref, ref_counts = kp.map_batch(codes, lens)
-    for pid in range(2):
-        got = np.load(os.path.join(out, f"kpart-{pid}.npz"))
+    for name in (f"{tag}-{pid}" for tag in ("kpart", "kpartg")
+                 for pid in range(2)):
+        got = np.load(os.path.join(out, f"{name}.npz"))
         assert np.array_equal(got["counts"], ref_counts.numpy())
         for f, t in zip(ref._fields, ref):
             t = t.view(torch.int32) if t.dtype == torch.uint32 else t
@@ -327,4 +333,6 @@ def test_two_processes_over_gloo(data, tmp_path):
 def test_dryrun_multichip_on_a_loopback_mesh(n):
     out = dryrun_multichip(n, loopback=True, device="cpu")
     assert out["mapped"] > 0 and out["kpart_mapped"] == out["mapped"]
+    # the reference's dry run runs the k-mer-partitioned step graph-sharded
+    assert out["kpart_graph_sharded"]
     assert out["counts_sum"] > 0

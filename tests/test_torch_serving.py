@@ -273,11 +273,19 @@ def test_device_cuda_without_cuda_raises(workload):
         port_cli.main(["map", "-i", idx, fq, "--device", "cuda"])
 
 
-def test_not_ported_paths_raise(workload):
-    """The host-only subcommands are not ported yet (paired `map` and
-    `count` are: tests/test_torch_paired.py, tests/test_torch_count.py)."""
+def test_not_ported_paths_raise(workload, tmp_path, capsysbinary):
+    """Every subcommand is ported now: the host-only ones run on the
+    workload's index (their bytes against the JAX CLI's are
+    tests/test_torch_cli_host.py's) and, like the JAX CLI, refuse to run
+    without an index."""
     from pseudoaligner_torch import cli as port_cli
 
+    _, _, idx, _ = workload
     for cmd in ("mappability", "idxstats", "inspect"):
-        with pytest.raises(NotImplementedError):
+        more = ["-o", str(tmp_path)] if cmd == "mappability" else []
+        rc, out = _run_cli(port_cli.main, [cmd, "-i", idx] + more,
+                           capsysbinary)
+        assert rc == 0, cmd
+        assert out or os.path.exists(tmp_path / "tx_mappability.tsv"), cmd
+        with pytest.raises(SystemExit):
             port_cli.main([cmd])
