@@ -10,7 +10,8 @@ multi-device layer on one card, and the graph-sharded walk.
 Phases (every number printed is for the card named on the first line):
 
 1. builds the CUDA kernels (csrc/*.cu, one nvcc per source, in parallel)
-   and prints ptxas's register and spill report;
+   and prints ptxas's register and spill report; no kernel may have a
+   stack frame or a spill;
 2. makes a GENCODE-order synthetic transcriptome from --seed (gene
    families of 500-4000 random bases with 1-3 isoforms cut by internal
    deletions, --novel-bases of novel sequence), writes it as a FASTA with
@@ -20,11 +21,12 @@ Phases (every number printed is for the card named on the first line):
 3. cuckoo seed index: holds the seed kernel (K1) and the walk kernel (K2)
    equal, tolerance 0, to their plain PyTorch versions on the card, on
    every batch in the serving shape and on the first in the uncapped
-   full-output (exact re-map) shape, and times both: device time from a
-   torch.profiler trace (where the trace misses launches, CUDA events
-   around each call with the device held busy while the host prepares
-   it), and the span of back-to-back wrapper calls by CUDA events; K2's
-   bound in both shapes;
+   full-output (exact re-map) shape, and times both by two methods, held
+   (CUDA events around each call with the device held busy while the
+   host prepares it: every timed row has it, and the kernels line's `ms`
+   is it) and traced (torch.profiler device time, with the launches the
+   trace saw), and the span of back-to-back wrapper calls by CUDA events;
+   K2's bound in both shapes;
 4. maps every batch through the device step alone (flagged -2/-3 share),
    times the serving emit loop (reads/s without set-up), then traces it
    once more for the device's busy share and its time per batch in copies
@@ -111,7 +113,10 @@ operations over 67 T/s (the H100 SXM's peak memory rate and its peak rate
 outside the tensor cores), whichever is larger.
 
 The script imports only the port, torch and numpy.  The line before the
-last is a JSON summary of the kernels; the last line is {"ok": true,
+last is a JSON summary of the kernels (each with held_ms and traced_ms,
+the launches the trace saw of those timed, and plain_traced_ms; `ms` and
+`plain_ms` are the held times; `launches_on` names the run `launches`
+counts); the last line is {"ok": true,
 "device": {...}}.  Any failure raises: non-zero exit and no "ok" line,
 also when CUDA is unavailable.
 """
@@ -293,6 +298,25 @@ def write_fastq(path: str, reads) -> None:
             f.write(b"".join(
                 b"@r%d\n%s\n+\n%s\n" % (i, seq[i * L:(i + 1) * L], qual)
                 for i in range(c0, min(n, c0 + BATCH))))
+
+
+def local_memory(log: str) -> dict:
+    """ptxas -v's report -> {function: (stack frame, spill stores, spill
+    loads) bytes}."""
+    import re
+
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            out[fn] = tuple(int(x) for x in m.groups())
+            fn = None
+    return out
 
 
 def span_ms(fn, reps: int) -> float:
@@ -767,6 +791,13 @@ def main(argv=None) -> int:
     for line in kernels.build_log.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             say(f"  ptxas: {line.strip()}")
+    # every kernel's state stays in registers and shared memory (a build
+    # reused from an earlier run has no report)
+    local = local_memory(kernels.build_log)
+    if any(sum(v) for v in local.values()):
+        raise AssertionError(f"local memory (stack, spill stores, spill "
+                             f"loads) in the kernels: {local}")
+    say(f"ptxas: no stack frame or spill in the {len(local)} kernels")
 
     # ---- 2. data ----
     work = os.path.join(HERE, ".smoke")
@@ -823,26 +854,25 @@ def main(argv=None) -> int:
             return f(calls[0] % n)
         return call
 
-    ms = {}
+    ms, traced_ms = {}, {}
 
-    def time_pair(name, f, reps, sym, n=n_b, held_only=False, per_call=1):
-        """Time f over rotating batches; ms[name] is the trace's device
-        time where it saw every launch (per_call launches of `sym` per
-        call), else the held-event time (always with held_only: a wrapper
-        of several launches and memsets)."""
+    def time_pair(name, f, reps, sym, n=n_b, per_call=1):
+        """Time f over rotating batches by both methods: ms[name] is the
+        held-event time, which every row has, so rows compare by one
+        method; traced_ms[name] is the trace's device time with the
+        launches of `sym` it saw and the per_call * reps it should have
+        (a trace of a short window may drop launches)."""
         span = span_ms(rotating(f, n), reps)
         dev_ms, seen = device_ms(rotating(f, n), reps, sym)
         held = held_ms(rotating(f, n), reps)
-        what = (f"kernel {sym}, {seen} launches seen of {reps}" if sym
-                else f"all device activity, {seen} activities")
+        what = (f"kernel {sym}, {seen} launches seen of {reps * per_call}"
+                if sym else f"all device activity, {seen} activities")
         say(f"ms per {BATCH}-read batch, {name}: device {dev_ms} ({what}, "
             f"traced), held {held} (CUDA events around each call, device "
             f"held busy meanwhile), span {span} (back-to-back calls, CUDA "
             "events)")
-        # the trace's device time where it saw every launch, else the
-        # held-event time
-        ms[name] = dev_ms if dev_ms is not None and not held_only and (
-            sym is None or seen == reps * per_call) else held
+        ms[name] = held
+        traced_ms[name] = (dev_ms, seen, reps * per_call if sym else None)
 
     def serving_report(al, mode: str):
         """Phase 4 for one engine: the device step alone, the serving emit
@@ -927,9 +957,9 @@ def main(argv=None) -> int:
             walk(meta, idx, pk, lens, nh3_p), f"walk kernel, batch {b}"))
     meta_full = full_shape(meta)
     full_k = kernels.walk_cuda(meta_full, idx, packed[0], lens, nh3[0])
-    err["walk"] = max(err["walk"], compare_results(
+    err["walk_full"] = compare_results(
         full_k, walk(meta_full, idx, packed[0], lens, nh3[0]),
-        "walk kernel (full output)"))
+        "walk kernel (full output)")
     torch.cuda.synchronize()
     say(f"[cuckoo] kernel == plain, tolerance 0: seed and walk (serving "
         f"shape) on all {n_b} batches of {BATCH} reads; walk full output "
@@ -1463,17 +1493,19 @@ def main(argv=None) -> int:
     time_pair("pack_plain", lambda i: pack_reads_device(codes[i]), 4, None,
               MODE_BATCHES)
     time_pair("route_only", lambda i: kernels.route_cuda(
-        packed[i], lens, 20, READ_LEN, 1, km.cap), n_b, None, MODE_BATCHES,
-        held_only=True)
+        packed[i], lens, 20, READ_LEN, 1, km.cap), n_b, None, MODE_BATCHES)
     time_pair("unscatter", lambda i: kernels.unscatter_cuda(
-        backs[i], srcs[i], BATCH, P_), n_b, None, MODE_BATCHES,
-        held_only=True)
+        backs[i], srcs[i], BATCH, P_), n_b, None, MODE_BATCHES)
     time_pair("route_only_plain", lambda i: si.route_queries(
         packed[i], lens, 20, READ_LEN, 1, km.cap), 2, None, MODE_BATCHES)
     time_pair("unscatter_plain", lambda i: si.unscatter_seeds(
         backs[i], srcs[i], BATCH, P_), 2, None, MODE_BATCHES)
-    ms["route"] = ms["route_only"] + ms["unscatter"]
-    ms["route_plain"] = ms["route_only_plain"] + ms["unscatter_plain"]
+    for key in ("route", "route_plain"):  # route and unscatter together
+        a, u = f"route_only{key[5:]}", f"unscatter{key[5:]}"
+        ms[key] = ms[a] + ms[u]
+        (ta, na, _), (tu, nu, _) = traced_ms[a], traced_ms[u]
+        traced_ms[key] = (ta + tu if ta is not None and tu is not None
+                          else None, na + nu, None)
     time_pair("mphf_dynamic", lambda i: kernels.mphf_dynamic_cuda(
         rq[i], shard, km.n_levels), n_b, "mphf_dynamic_kernel", MODE_BATCHES)
     time_pair("mphf_dynamic_plain", lambda i: dynamic_verified_lookup(
@@ -1569,7 +1601,7 @@ def main(argv=None) -> int:
     # one [n_tx] int32 vector over the NCCL group
     one_counts = kernels.tx_counts_cuda(dp_res[0], n_tx)
     time_pair("all_reduce", lambda i: mesh1.all_reduce([one_counts]), n_b,
-              None, 1, held_only=True)
+              None, 1)
     del sa, dp_res, one_counts
 
     # (e) the multi-host map at world size 1: part file == the record path's
@@ -1791,14 +1823,30 @@ def main(argv=None) -> int:
     del kpb, sa, cls_res, cls
     dist.destroy_process_group()
 
+    # the run whose count each entry's `launches` is (launches[mode]); the
+    # map CLIs run the serving shape, the bitset index's paths full output
+    runs = {"cuckoo": "map CLI, cuckoo index",
+            "bucket1": "map CLI, bucket1 index",
+            "mphf": "map CLI, mphf index", "stats": "batch_stats",
+            "bitset": "count_single_cell and map_fastq on the bitset index",
+            "kpart": "kpart serving emit, S = 1",
+            "sharded": "ShardedAligner.map_batch, bitset index",
+            "graph": "graph-sharded kpart serving emit, S = 1",
+            "graph_full": "graph-sharded full output, S = 4 loopback"}
+
     def entry(name, key, source, replaces, mode, which):
         b_ms, b_by = bounds[key]
+        t_ms, seen, of = traced_ms[key]
         return {"name": name, "route": "cuda",
                 "source": f"pseudoaligner_torch/csrc/{source}",
                 "replaces": f"pseudoaligner_tpu/{replaces}",
-                "launches": launches[mode][which], "max_abs_err": err[key],
+                "launches": launches[mode][which], "launches_on": runs[mode],
+                "max_abs_err": err[key],
                 "ms": ms[key], "plain_ms": ms[f"{key}_plain"],
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "held_ms": ms[key], "traced_ms": t_ms,
+                "traced_launches_seen": seen, "traced_launches_timed": of,
+                "plain_traced_ms": traced_ms[f"{key}_plain"][0]}
 
     kernels_line = {"kernels": [
         entry("seed_tables[cuckoo]", "seed", "seed.cu",
@@ -1809,6 +1857,8 @@ def main(argv=None) -> int:
               "ops/mphf_lookup.py:88", "mphf", "seed"),
         entry("walk[cuckoo]", "walk", "walk.cu", "ops/map_kernel.py:719",
               "cuckoo", "walk"),
+        entry("walk[cuckoo] (full-output shape)", "walk_full", "walk.cu",
+              "ops/map_kernel.py:719", "bitset", "walk"),
         entry("walk[bucket1, lazy seek]", "walk_bucket1", "walk.cu",
               "ops/map_kernel.py:1000", "bucket1", "walk"),
         entry("walk[mphf] (full-output shape)", "walk_mphf", "walk.cu",

@@ -38,7 +38,8 @@
 //            (eager seeds: kpart turns lazy seeds off); requests the next
 //            forward fetch;
 //   finish   capped (a cap left a loop active, or pushes beyond max_nodes)
-//            and common.cuh's output encoding, shared with K2.
+//            and common.cuh's output encoding, shared with K2: the stored
+//            pushes are replayed through it as K2 feeds it its live ones.
 //
 // Bound on the H100: launch latency.  Each step does one read's handful of
 // loads and a compare of at most L bases; at B = 65,536 a step moves a few
@@ -152,12 +153,10 @@ __global__ void gwalk_left_a_kernel(pa::Params p, Geo g,
     const int32_t* r = response(g, p.B, b, back, 12 + g.WW, s[L_NODE]);
     const uint32_t* win = reinterpret_cast<const uint32_t*>(r + 12);
     const int maxm = min(last_pos + 1, pko + 1);
-    const int top = p.L - 1;
     int matched, seen;
     const bool prem = pa::segment_compare(
-        maxm, p.allowed, [&](int i) { return pa::base_at(win, top - i); },
-        [&](int i) { return pa::base_at(read, last_pos - i); }, &matched,
-        &seen);
+        maxm, p.allowed, -1, pa::window_words(win, g.WW), p.L - 1,
+        pa::window_words(read, p.nw), last_pos, &matched, &seen);
     s[COV] += matched;
     s[MM] += seen;
     const int lp2 = last_pos - matched;
@@ -216,8 +215,8 @@ __global__ void gwalk_forward_kernel(pa::Params p, Geo g,
     const int maxm = max(min(len - kpos, r[1] - ref_off), 0);
     int matched, seen;
     const bool prem = pa::segment_compare(
-        maxm, p.allowed, [&](int i) { return pa::base_at(win, i); },
-        [&](int i) { return pa::base_at(read, kpos + i); }, &matched, &seen);
+        maxm, p.allowed, 1, pa::window_words(win, g.WW), 0,
+        pa::window_words(read, p.nw), kpos, &matched, &seen);
     kpos += matched;
     cov += matched;
     s[MM] += seen;
@@ -255,20 +254,24 @@ __global__ void gwalk_forward_kernel(pa::Params p, Geo g,
 __global__ void gwalk_finish_kernel(pa::Params p,
                                     const int32_t* __restrict__ st,
                                     const int32_t* __restrict__ buf,
-                                    uint8_t* __restrict__ mapped_out,
-                                    void* __restrict__ cov_out,
-                                    int32_t* __restrict__ mm_out,
-                                    int32_t* __restrict__ nn_out,
-                                    void* __restrict__ dist_out,
-                                    int32_t* __restrict__ nodes_out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= p.B) return;
+                                    pa::WalkOut o) {
+  extern __shared__ int4 smem4[];
+  int32_t* s_slots = reinterpret_cast<int32_t*>(smem4);  // [dc][blockDim]
+  const int b0 = blockIdx.x * blockDim.x, nb = min((int)blockDim.x, p.B - b0);
+  pa::walk_out_begin(p, b0, nb, o);
+  __syncthreads();
+  if ((int)threadIdx.x >= nb) return;
+  const int b = b0 + threadIdx.x;
   const int32_t* s = st + (size_t)b * NSTATE;
+  const int32_t* mybuf = buf + (size_t)b * p.max_nodes * 2;
+  // the stored pushes, through the same encoding as K2's live ones
+  pa::Pushes out(p, o, b, s_slots + threadIdx.x, blockDim.x);
+  const int n = min(s[NN], p.max_nodes);
+  for (int i = 0; i < n; i++) out.push(p, mybuf[2 * i], mybuf[2 * i + 1]);
+  out.nn = s[NN];
   const bool capped = (p.lcap > 0 && s[L_ACT]) || (p.wcap > 0 && s[F_ACT]) ||
                       s[NN] > p.max_nodes;
-  pa::encode_output(p, b, buf + (size_t)b * p.max_nodes * 2, s[NN], s[COV],
-                    s[MM], capped, mapped_out, cov_out, mm_out, nn_out,
-                    dist_out, nodes_out);
+  pa::encode_output(p, b, out, s[COV], s[MM], capped, o);
 }
 
 constexpr int THREADS = 128;
@@ -346,7 +349,10 @@ extern "C" int pa_gwalk_finish(const int64_t* params, int device,
   if (e != cudaSuccess) return (int)e;
   const pa::Params p = pa::params_from(params, 0.0f);
   if (p.B == 0) return 0;
-  gwalk_finish_kernel<<<blocks_for(p.B), THREADS, 0, (cudaStream_t)stream>>>(
-      p, st, buf, mapped, coverage, mismatches, n_nodes, ec_distinct, nodes);
+  const size_t smem = (size_t)4 * THREADS * p.dc;  // <= 32 KB: dc <= 64
+  const pa::WalkOut o{mapped, coverage, mismatches, n_nodes, ec_distinct,
+                      nodes};
+  gwalk_finish_kernel<<<blocks_for(p.B), THREADS, smem,
+                        (cudaStream_t)stream>>>(p, st, buf, o);
   return (int)cudaGetLastError();
 }

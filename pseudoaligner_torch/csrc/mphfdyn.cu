@@ -10,7 +10,9 @@
 // and key offsets; n_levels <= MAX_LEVELS) comes from device memory, not
 // from the launch parameters as in K1.  Each block copies it into shared
 // memory, then one thread per query runs common.cuh's mphf_slot over it
-// (the first level whose bit is set gives the slot) and key_at_slot_equals.
+// (the first level whose bit is set gives the slot) and key_at_slot_equals,
+// both for the W the launch picks (the stored key in 8- or 16-byte loads,
+// so the wrapper asks for a 16-byte aligned key array).
 // Levels padded past a shard's own have mask 0 and point at a zero word,
 // so they never hit.  Every buffer slot is probed, zero-key padding
 // included, as the reference does.
@@ -37,6 +39,7 @@ struct Dyn {
   const int32_t* values;
 };
 
+template <int W>
 __global__ void mphf_dynamic_kernel(Dyn a, int32_t* __restrict__ out) {
   __shared__ pa::Levels lv;
   for (int i = threadIdx.x; i < a.n_levels; i += blockDim.x) {
@@ -48,14 +51,12 @@ __global__ void mphf_dynamic_kernel(Dyn a, int32_t* __restrict__ out) {
   __syncthreads();
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= a.n) return;
-  pa::Params p = {};
-  p.W = a.W;
-  p.n_levels = a.n_levels;
-  uint32_t w[pa::MAX_W];
-  for (int j = 0; j < a.W; j++) w[j] = a.queries[t * a.W + j];
-  const int slot = pa::mphf_slot(p, lv, a.bits, a.ranks, w);
+  uint32_t w[W];
+#pragma unroll
+  for (int j = 0; j < W; j++) w[j] = a.queries[t * W + j];
+  const int slot = pa::mphf_slot<W>(a.n_levels, lv, a.bits, a.ranks, w);
   int node = -1, off = -1;
-  if (slot >= 0 && pa::key_at_slot_equals(a.keys, slot, a.W, w)) {
+  if (slot >= 0 && pa::key_at_slot_equals<W>(a.keys, slot, w)) {
     node = a.values[2 * (int64_t)slot];
     off = a.values[2 * (int64_t)slot + 1];
   }
@@ -82,6 +83,10 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
            word_offsets, key_offsets, keys, values};
   const int threads = 256;
   const int blocks = (int)((n + threads - 1) / threads);
-  mphf_dynamic_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(a, out);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)pa::with_w(W, [&](auto w) {
+    mphf_dynamic_kernel<decltype(w)::value>
+        <<<blocks, threads, 0, st>>>(a, out);
+    return cudaGetLastError();
+  });
 }

@@ -29,7 +29,7 @@
 // Bound on the H100: memory bytes.  The send buffers are S * CAP slots of
 // W + 1 words whatever the batch holds (CAP = slack * B * P / S^2 rounded
 // up, slack 4 by default), so at S = 1 the route writes four times the
-// batch's queries; the k-mers are rolled from the packed reads, which stay
+// batch's queries; the k-mers are cut from the packed reads, which stay
 // in L1/L2 across the three kernels.
 
 #include "common.cuh"
@@ -44,29 +44,31 @@ constexpr int SCAN_THREADS = 1024;  // 32 warps: block_scan relies on it
 
 struct Route {
   int64_t n;  // B * P positions
-  int nw, k, W, P, S, CAP;
+  int nw, k, P, S, CAP;
   const uint32_t* packed;
   const int32_t* lens;
 };
 
 // Owner shard of flat position t = b*P + p, with its k-mer words in w; S
 // for a position past len - k or past the batch.
+template <int W>
 __device__ __forceinline__ int owner_of(const Route& a, int64_t t,
-                                        uint32_t* w) {
+                                        uint32_t (&w)[W]) {
   if (t >= a.n) return a.S;
   const int64_t b = t / a.P;
   const int p = (int)(t % a.P);
   if (p > a.lens[b] - a.k) return a.S;
-  pa::kmer_words(a.packed + b * a.nw, p, a.k, a.W, w);
-  return (int)(pa::hash_words(w, a.W, OWNER_SEED) & (uint32_t)(a.S - 1));
+  pa::kmer_words<W>(pa::window_words(a.packed + b * a.nw, a.nw), p, a.k, w);
+  return (int)(pa::hash_words<W>(w, OWNER_SEED) & (uint32_t)(a.S - 1));
 }
 
+template <int W>
 __global__ void route_count_kernel(Route a, int32_t* __restrict__ counts) {
   __shared__ int cnt[MAX_S];
   for (int i = threadIdx.x; i < a.S; i += BLOCK) cnt[i] = 0;
   __syncthreads();
-  uint32_t w[pa::MAX_W];
-  const int o = owner_of(a, (int64_t)blockIdx.x * BLOCK + threadIdx.x, w);
+  uint32_t w[W];
+  const int o = owner_of<W>(a, (int64_t)blockIdx.x * BLOCK + threadIdx.x, w);
   if (o < a.S) atomicAdd(&cnt[o], 1);
   __syncthreads();
   for (int i = threadIdx.x; i < a.S; i += BLOCK)
@@ -115,6 +117,7 @@ __global__ void route_scan_kernel(int n_blocks, int S,
   }
 }
 
+template <int W>
 __global__ void route_place_kernel(Route a,
                                    const int32_t* __restrict__ offsets,
                                    uint32_t* __restrict__ send_q,
@@ -127,8 +130,8 @@ __global__ void route_place_kernel(Route a,
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t t = (int64_t)blockIdx.x * BLOCK + threadIdx.x;
-  uint32_t w[pa::MAX_W];
-  const int o = owner_of(a, t, w);
+  uint32_t w[W];
+  const int o = owner_of<W>(a, t, w);
   // every lane of the warp takes part: invalid ones under owner S
   const unsigned peers = __match_any_sync(0xFFFFFFFFu, o);
   const int rank = __popc(peers & ((1u << lane) - 1u));
@@ -147,7 +150,8 @@ __global__ void route_place_kernel(Route a,
   const int slot = offsets[(size_t)blockIdx.x * a.S + o] + wcnt[warp][o] + rank;
   if (slot < a.CAP) {
     const size_t d = (size_t)o * a.CAP + slot;
-    for (int j = 0; j < a.W; j++) send_q[d * a.W + j] = w[j];
+#pragma unroll
+    for (int j = 0; j < W; j++) send_q[d * W + j] = w[j];
     send_src[d] = (int32_t)t;
   } else {
     atomicAdd(overflow, 1);
@@ -191,7 +195,6 @@ extern "C" int pa_route(int device, int B, int nw, int k, int P, int S,
   a.n = (int64_t)B * P;
   a.nw = nw;
   a.k = k;
-  a.W = W;
   a.P = P;
   a.S = S;
   a.CAP = CAP;
@@ -199,13 +202,17 @@ extern "C" int pa_route(int device, int B, int nw, int k, int P, int S,
   a.lens = lens;
   const int n_blocks = (int)((a.n + BLOCK - 1) / BLOCK);
   if (n_blocks == 0) return 0;
-  route_count_kernel<<<n_blocks, BLOCK, 0, st>>>(a, counts);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  route_scan_kernel<<<S, SCAN_THREADS, 0, st>>>(n_blocks, S, counts, offsets);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  route_place_kernel<<<n_blocks, BLOCK, 0, st>>>(a, offsets, send_q, send_src,
-                                                 overflow, dropped);
-  return (int)cudaGetLastError();
+  return (int)pa::with_w(W, [&](auto w) {
+    constexpr int WT = decltype(w)::value;
+    route_count_kernel<WT><<<n_blocks, BLOCK, 0, st>>>(a, counts);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    route_scan_kernel<<<S, SCAN_THREADS, 0, st>>>(n_blocks, S, counts,
+                                                  offsets);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    route_place_kernel<WT><<<n_blocks, BLOCK, 0, st>>>(
+        a, offsets, send_q, send_src, overflow, dropped);
+    return cudaGetLastError();
+  });
 }
 
 extern "C" int pa_unscatter(int device, long long n_slots, long long n_pos,

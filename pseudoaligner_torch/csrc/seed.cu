@@ -9,70 +9,182 @@
 // (map_kernel.py:583) on seed tables given from outside: the
 // k-mer-partitioned step's routed probes (parallel/sharded_index.py).
 //
-// One thread per (read, residue r in {0,1,2}).  It walks the positions
-// p = r, r+3, ... backwards, rolls each probed position's k-mer words
-// straight from the packed read, probes the seed index of p.mode (cuckoo,
-// bucket1 or the verified MPHF, common.cuh seed_probe), and writes
-// nh3[b, p] = the nearest valid hit q >= p on the residue grid, or
-// (P, -1, -1) when there is none (common.cuh next_hit_residue, shared with
-// the next_hit entry).  A hit is valid when node >= 0 and
-// p <= len - k; positions past len - k are not probed at all.  With lazy
-// seeds (cuckoo and bucket1 only) only residue 0 is probed and residues 1
-// and 2 stay (P, -1, -1).
+// Bound on the H100: memory bytes.  Random reads of the index (one or two
+// 32-byte cuckoo buckets and an 8-byte value, a 256-byte bucket1 row at
+// k=20, or per MPHF level a bit word, then a rank word, the stored key and
+// the value) from tables far larger than the 50 MB L2 at GENCODE scale, and
+// the 12*P-byte nh3 row written per read, about 40% of the bytes.  What
+// holds it back is the rate of random 32-byte reads, well below the
+// streaming rate: each probe is a chain of dependent random loads (two or
+// three for cuckoo, four or more for the MPHF), so the kernel needs as
+// many probes in flight as its threads can carry, and every sector it
+// does not read counts.  On the H100 the second cuckoo bucket read
+// alongside the first, or two probes interleaved in one thread, made it
+// slower once every thread carried a probe.
 //
-// Bound on the H100: memory bytes.  Random reads of the index (two 32-byte
-// cuckoo buckets, one 256-byte bucket1 row at k=20, or per MPHF level a bit
-// word and a rank word plus the stored key and value at the slot) from a
-// table far larger than the 50 MB L2 at GENCODE scale, and the 12*P-byte
-// nh3 row write per read.  This first version keeps the scalar per-thread probe;
-// warp-cooperative probing and coalesced nh3 stores are later work.
+// The design: a block owns a tile of R consecutive reads in shared memory
+// (common.cuh SeedTile) and runs three phases over it.
+//   A, probe: the tile's packed words are loaded once into shared memory;
+//      then one thread per (read, probed position): every residue-0
+//      position under lazy seeds (14 per read at L = 60, k = 20), every
+//      position otherwise, none past len - k.  R and the block width are
+//      chosen so that each thread has exactly one probe (probe_tile: R = 16
+//      and 224 threads lazy, R = 12 and 512 threads eager): a thread with
+//      a second probe in a row holds its whole block for a second chain
+//      of loads (slower on the H100 with 32-read tiles of 256 threads).  A
+//      batch has 0.9 M (lazy) to 2.7 M (eager) independent probes to
+//      spread over the card, against one serial chain of up to 14 probes
+//      per thread before.
+//      Each position's k-mer words are cut from the read's words with
+//      funnel shifts and a 2-bit reversal (common.cuh kmer_words), with
+//      W and the index kind as template parameters, so the k-mer and
+//      bucket rows stay in registers; bucket rows come in 16-byte loads,
+//      the second cuckoo bucket only after a miss in the first.
+//   B, scan: one thread per (read, residue) runs common.cuh's
+//      next_hit_residue backwards over the tile's (node, off) in shared
+//      memory; under lazy seeds residues 1 and 2 are only filled with
+//      (P, -1, -1).
+//   C, store: the tile's nh3 rows, R*P*3 contiguous int32, go out in
+//      coalesced 16-byte stores (before: 12-byte triples 36 bytes apart
+//      within a thread and a row apart between threads).
+// The next_hit entry runs B and C unchanged after a coalesced load of the
+// tile's seed_node / seed_off rows in place of A.
 
 #include "common.cuh"
 
 namespace {
 
-__global__ void seed_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
+constexpr int THREADS = 256;  // next_hit entry; the probing entry sizes its own
+constexpr int MAX_PROBE_THREADS = 512;
+constexpr int TILE = 32;  // reads per block at most
+
+template <int W, int MODE>
+__global__ void seed_kernel(pa::Params p,
+                            const __grid_constant__ pa::Levels lv,
                             const uint32_t* __restrict__ packed,
                             const int32_t* __restrict__ lens, pa::Index ix,
-                            int32_t* __restrict__ nh3) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (int64_t)p.B * 3) return;
-  int b = (int)(t / 3);
-  int r = (int)(t % 3);
-  if (r >= p.P) return;
-  const uint32_t* read = packed + (size_t)b * p.nw;
-  uint32_t w[pa::MAX_W];
-  pa::next_hit_residue(
-      p.P, r, lens[b] - p.k, !p.lazy || r == 0,
-      [&](int pos, int* node, int* off) {
-        pa::kmer_words(read, pos, p.k, p.W, w);
-        pa::seed_probe(p, lv, ix, w, node, off);
-      },
-      nh3 + (size_t)b * p.P * 3);
+                            int R, int32_t* __restrict__ nh3) {
+  extern __shared__ int4 smem4[];
+  pa::SeedTile t(reinterpret_cast<int32_t*>(smem4), R, p.P, p.nw);
+  const int P = p.P, k = p.k, nw = p.nw, S = nw + 2;
+  const int b0 = blockIdx.x * R, nb = min(R, p.B - b0);
+  // the tile's reads, a zero word before and after each
+  for (int i = threadIdx.x; i < nb * S; i += blockDim.x) {
+    const int r = i / S, q = i - r * S - 1;
+    t.read[i] = q >= 0 && q < nw ? packed[(size_t)(b0 + r) * nw + q] : 0u;
+  }
+  for (int r = threadIdx.x; r < nb; r += blockDim.x) t.len[r] = lens[b0 + r];
+  __syncthreads();
+
+  // A: one probe per (read, probed position)
+  const int per = p.lazy ? (P + 2) / 3 : P;
+  for (int i = threadIdx.x; i < nb * per; i += blockDim.x) {
+    const int r = i / per, j = i - r * per;
+    const int pos = p.lazy ? 3 * j : j;
+    int node = -1, off = -1;
+    if (pos <= t.len[r] - k) {
+      const uint32_t* rw = t.read + (size_t)r * S + 1;
+      uint32_t w[W];
+      pa::kmer_words<W>([&](int q) { return rw[q]; }, pos, k, w);
+      pa::seed_probe_as<W, MODE>(p, lv, ix, w, &node, &off);
+    }
+    t.node[(size_t)r * P + pos] = node;
+    t.off[(size_t)r * P + pos] = off;
+  }
+  __syncthreads();
+
+  // B and C
+  t.scan_and_store(k, !p.lazy, nb, nh3 + (size_t)b0 * P * 3);
 }
 
 // The next_hit entry: the same table from given per-position seeds
 // (seed_node / seed_off [B, P], -1 where a position has none), as the
 // k-mer-partitioned step's routed probes return them.
-__global__ void next_hit_kernel(int B, int P, int k,
+__global__ void next_hit_kernel(int B, int P, int k, int R,
                                 const int32_t* __restrict__ seed_node,
                                 const int32_t* __restrict__ seed_off,
                                 const int32_t* __restrict__ lens,
                                 int32_t* __restrict__ nh3) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (int64_t)B * 3) return;
-  int b = (int)(t / 3);
-  int r = (int)(t % 3);
-  if (r >= P) return;
-  const int32_t* sn = seed_node + (size_t)b * P;
-  const int32_t* so = seed_off + (size_t)b * P;
-  pa::next_hit_residue(
-      P, r, lens[b] - k, true,
-      [&](int pos, int* node, int* off) {
-        *node = sn[pos];
-        *off = so[pos];
-      },
-      nh3 + (size_t)b * P * 3);
+  extern __shared__ int4 smem4[];
+  pa::SeedTile t(reinterpret_cast<int32_t*>(smem4), R, P, 0);
+  const int b0 = blockIdx.x * R, nb = min(R, B - b0);
+  const size_t at = (size_t)b0 * P;
+  for (int i = threadIdx.x; i < nb * P; i += blockDim.x) {
+    t.node[i] = seed_node[at + i];
+    t.off[i] = seed_off[at + i];
+  }
+  for (int r = threadIdx.x; r < nb; r += blockDim.x) t.len[r] = lens[b0 + r];
+  __syncthreads();
+  t.scan_and_store(k, true, nb, nh3 + at * 3);
+}
+
+// Reads per tile: TILE, or as many as the default shared memory holds;
+// 0 when not even one read fits the most a block may have.
+int tile_reads(int P, int nw) {
+  const size_t one = pa::SeedTile::bytes(1, P, nw);
+  if (one > 227 * 1024) return 0;
+  const int fit = (int)(pa::SMEM_DEFAULT / one);
+  return fit < 1 ? 1 : (fit < TILE ? fit : TILE);
+}
+
+// The probing entry's tile of R reads and its T threads: one probe per
+// thread where it fits (a thread with two probes in a row holds its block
+// for two dependent load chains), with R a multiple of 4 (so every tile's
+// nh3 starts on 16 bytes) and T = R * per rounded up to a warp, the R of
+// the fewest idle threads with T <= MAX_PROBE_THREADS; 14 probes per read
+// (lazy, P = 41) give R = 16, T = 224, and 41 (eager) R = 12, T = 512.
+// Longer reads stride, 4 or fewer reads per tile.
+void probe_tile(int P, int nw, int per, int* R, int* T) {
+  const int most = tile_reads(P, nw);
+  *R = most < 4 ? most : 4;
+  *T = MAX_PROBE_THREADS;
+  double best = -1.0;
+  for (int r = 4; r <= most; r += 4) {
+    const int t = (r * per + 31) / 32 * 32;
+    if (t > MAX_PROBE_THREADS) break;
+    const double used = (double)(r * per) / t;
+    if (used > best) {
+      best = used;
+      *R = r;
+      *T = t;
+    }
+  }
+}
+
+template <int W, int MODE>
+cudaError_t launch_seed(const pa::Params& p, const pa::Levels& lv,
+                        const uint32_t* packed, const int32_t* lens,
+                        const pa::Index& ix, int32_t* nh3,
+                        cudaStream_t stream) {
+  int R, T;
+  probe_tile(p.P, p.nw, p.lazy ? (p.P + 2) / 3 : p.P, &R, &T);
+  if (R == 0) return cudaErrorInvalidValue;
+  const size_t smem = pa::SeedTile::bytes(R, p.P, p.nw);
+  cudaError_t e = pa::allow_smem(seed_kernel<W, MODE>, smem);
+  if (e != cudaSuccess) return e;
+  const int blocks = (p.B + R - 1) / R;
+  seed_kernel<W, MODE><<<blocks, T, smem, stream>>>(p, lv, packed, lens, ix,
+                                                    R, nh3);
+  return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t launch_seed_w(const pa::Params& p, const pa::Levels& lv,
+                          const uint32_t* packed, const int32_t* lens,
+                          const pa::Index& ix, int32_t* nh3,
+                          cudaStream_t stream) {
+  switch (p.mode) {
+    case pa::MODE_CUCKOO:
+      return launch_seed<W, pa::MODE_CUCKOO>(p, lv, packed, lens, ix, nh3,
+                                             stream);
+    case pa::MODE_BUCKET1:
+      return launch_seed<W, pa::MODE_BUCKET1>(p, lv, packed, lens, ix, nh3,
+                                              stream);
+    case pa::MODE_MPHF:
+      return launch_seed<W, pa::MODE_MPHF>(p, lv, packed, lens, ix, nh3,
+                                           stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -86,12 +198,11 @@ extern "C" int pa_seed_tables(const int64_t* params, const int64_t* index,
   pa::Params p = pa::params_from(params, 0.0f);
   if (p.B == 0) return 0;
   const pa::Levels lv = pa::levels_from(params);
-  const int threads = 128;
-  int64_t n = (int64_t)p.B * 3;
-  int blocks = (int)((n + threads - 1) / threads);
-  seed_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      p, lv, packed, lens, pa::index_from(index), nh3);
-  return (int)cudaGetLastError();
+  const pa::Index ix = pa::index_from(index);
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)pa::with_w(p.W, [&](auto w) {
+    return launch_seed_w<decltype(w)::value>(p, lv, packed, lens, ix, nh3, st);
+  });
 }
 
 extern "C" int pa_next_hit(int device, int B, int P, int k,
@@ -100,11 +211,14 @@ extern "C" int pa_next_hit(int device, int B, int P, int k,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B == 0) return 0;
-  const int threads = 128;
-  int64_t n = (int64_t)B * 3;
-  int blocks = (int)((n + threads - 1) / threads);
-  next_hit_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      B, P, k, seed_node, seed_off, lens, nh3);
+  const int R = tile_reads(P, 0);
+  if (R == 0 || P < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = pa::SeedTile::bytes(R, P, 0);
+  if ((e = pa::allow_smem(next_hit_kernel, smem)) != cudaSuccess)
+    return (int)e;
+  const int blocks = (B + R - 1) / R;
+  next_hit_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      B, P, k, R, seed_node, seed_off, lens, nh3);
   return (int)cudaGetLastError();
 }
 

@@ -6,8 +6,9 @@
 // all_kmers, mphf_probe and the stored-key verify).
 //
 // One thread per (read, position p).  A position is valid when
-// p <= len - k.  For a valid position the thread rolls the k-mer's words
-// from the packed read, runs the MPHF level probe (common.cuh mphf_slot)
+// p <= len - k.  For a valid position the thread cuts the k-mer's words
+// from the packed read (common.cuh kmer_words, for the W the launch
+// picks), runs the MPHF level probe (common.cuh mphf_slot)
 // and compares the key stored at the slot: a hit when it equals, a false
 // positive when a slot came back but the key differs.  Each block sums its
 // threads' three flags (warp shuffles, then one warp over the per-warp
@@ -25,6 +26,7 @@ namespace {
 
 constexpr int THREADS = 256;
 
+template <int W>
 __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
                              const uint32_t* __restrict__ packed,
                              const int32_t* __restrict__ lens, pa::Index ix,
@@ -36,11 +38,12 @@ __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv
     const int pos = (int)(t % p.P);
     if (pos <= lens[b] - p.k) {
       valid = 1;
-      uint32_t w[pa::MAX_W];
-      pa::kmer_words(packed + (size_t)b * p.nw, pos, p.k, p.W, w);
-      const int slot = pa::mphf_slot(p, lv, ix.bits, ix.ranks, w);
+      uint32_t w[W];
+      pa::kmer_words<W>(pa::window_words(packed + (size_t)b * p.nw, p.nw),
+                        pos, p.k, w);
+      const int slot = pa::mphf_slot<W>(p.n_levels, lv, ix.bits, ix.ranks, w);
       if (slot >= 0) {
-        if (pa::key_at_slot_equals(ix.keys, slot, p.W, w))
+        if (pa::key_at_slot_equals<W>(ix.keys, slot, w))
           hit = 1;
         else
           fp = 1;
@@ -88,9 +91,13 @@ extern "C" int pa_stats(const int64_t* params, const int64_t* index,
   pa::Params p = pa::params_from(params, 0.0f);
   if (p.B == 0) return 0;
   const pa::Levels lv = pa::levels_from(params);
+  const pa::Index ix = pa::index_from(index);
   const int64_t n = (int64_t)p.B * p.P;
   const int blocks = (int)((n + THREADS - 1) / THREADS);
-  stats_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      p, lv, packed, lens, pa::index_from(index), counts);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)pa::with_w(p.W, [&](auto w) {
+    stats_kernel<decltype(w)::value><<<blocks, THREADS, 0, st>>>(
+        p, lv, packed, lens, ix, counts);
+    return cudaGetLastError();
+  });
 }

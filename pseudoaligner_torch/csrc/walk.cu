@@ -20,52 +20,78 @@
 //   - output: compact run-length EC ids in distinct_cap slots (-2 on
 //     overflow, -3 when capped, int16/uint8 narrowing), or the full node
 //     list when distinct_cap == 0.
-// The (node, ec) push buffer is the wrapper's [B, max_nodes, 2] scratch;
-// only the first max_nodes pushes are stored, n_nodes counts all.  The
-// segment compare and the output encoding are common.cuh's, shared with
-// the graph-sharded walk's steps (K10, gwalk.cu).
+// The segment compare and the output encoding are common.cuh's, shared
+// with the graph-sharded walk's steps (K10, gwalk.cu).
 //
 // Bound on the H100: a latency-bound, divergent pointer chase.  Each step
 // reads a 48-byte node row, a few pool words and, on seek, the seed
-// index's bucket rows, all dependent loads from tables far larger than L2 at GENCODE
-// scale; reads finish after different numbers of steps, so warps diverge.
-// This first version keeps one thread per read and relies on many reads in
-// flight to hide latency; warp-cooperative walks are later work.
+// index's bucket rows, all dependent loads from tables far larger than L2
+// at GENCODE scale; reads finish after different numbers of steps, so warps
+// diverge.  The walk stays one thread per read, and the design takes the
+// waste out around it:
+//   - the block's reads are loaded once, coalesced, into shared memory, one
+//     column per thread ([nw + 2][threads], zero words at both ends), where
+//     any base or word is one bank-conflict-free load (a register array
+//     indexed at run time would sit in local memory);
+//   - the segment compare runs 16 bases per step on word windows
+//     (common.cuh segment_compare), not two base loads per base;
+//   - a node row is read as 16-byte loads: (start, len, exts, ec) and the
+//     edge quad the loop follows;
+//   - no push buffer in device memory.  The compact shape run-length
+//     compacts the class ids online into its dc slots, a shared-memory
+//     column per thread; the full shape sets the block's rows of nodes to
+//     -1 with 16-byte stores and then writes each push straight to its
+//     slot, so every read keeps full occupancy whatever max_nodes is
+//     (staging max_nodes ids per thread on chip would cap a block at a few
+//     warps per SM at max_nodes 120-192);
+//   - W is a template parameter, so the lazy seek's k-mer (cut from the
+//     read's words, common.cuh kmer_words) and bucket rows stay in
+//     registers.
 
 #include "common.cuh"
 
 namespace {
 
-__global__ void walk_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
+constexpr int THREADS = 128;
+
+__device__ __forceinline__ int edge(const int4& e, int nb) {
+  return nb == 0 ? e.x : nb == 1 ? e.y : nb == 2 ? e.z : e.w;
+}
+
+template <int W>
+__global__ void walk_kernel(pa::Params p,
+                            const __grid_constant__ pa::Levels lv,
                             const uint32_t* __restrict__ packed,
                             const int32_t* __restrict__ lens,
                             const int32_t* __restrict__ nh3,
                             const uint32_t* __restrict__ pool,
                             const int32_t* __restrict__ node_row, pa::Index ix,
-                            int32_t* __restrict__ buf,
-                            uint8_t* __restrict__ mapped_out,
-                            void* __restrict__ cov_out,
-                            int32_t* __restrict__ mm_out,
-                            int32_t* __restrict__ nn_out,
-                            void* __restrict__ dist_out,
-                            int32_t* __restrict__ nodes_out) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= p.B) return;
+                            pa::WalkOut o) {
+  extern __shared__ int4 smem4[];
+  const int T = blockDim.x, t = threadIdx.x;
+  const int nw = p.nw;
+  uint32_t* s_read = reinterpret_cast<uint32_t*>(smem4);  // [nw + 2][T]
+  int32_t* s_slots = reinterpret_cast<int32_t*>(s_read + (nw + 2) * T);
+  const int b0 = blockIdx.x * T, nb = min(T, p.B - b0);
+  for (int i = t; i < nb * nw; i += T) {
+    const int r = i / nw, q = i - r * nw;
+    s_read[(q + 1) * T + r] = packed[(size_t)b0 * nw + i];
+  }
+  s_read[t] = 0u;
+  s_read[(nw + 1) * T + t] = 0u;
+  pa::walk_out_begin(p, b0, nb, o);
+  __syncthreads();
+  if (t >= nb) return;
+
+  const int b = b0 + t;
   const int k = p.k, P = p.P, M = p.max_nodes, allowed = p.allowed;
-  const uint32_t* read = packed + (size_t)b * p.nw;
   const int32_t* tbl = nh3 + (size_t)b * P * 3;
   const int len = lens[b];
-  int32_t* mybuf = buf + (size_t)b * M * 2;
-  for (int i = 0; i < 2 * M; i++) mybuf[i] = -1;
-
-  int cov = 0, mm = 0, nn = 0;
-  auto push = [&](int node, int ec) {
-    if (nn < M) {
-      mybuf[2 * nn] = node;
-      mybuf[2 * nn + 1] = ec;
-    }
-    nn++;
-  };
+  const int4* rows = reinterpret_cast<const int4*>(node_row);  // 3 per node
+  auto rd = [&](int q) { return s_read[(q + 1) * T + t]; };
+  auto pw = [&](int q) { return __ldg(pool + q); };
+  pa::Pushes out(p, o, b, s_slots + t, T);
+  int cov = 0, mm = 0;
 
   const int q0 = tbl[0], node0 = tbl[1], off0 = tbl[2];
   const bool seeded = q0 < P;
@@ -79,28 +105,25 @@ __global__ void walk_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
     int last_pos = q0 - 1;
     bool active = true;
     for (int it = 0; active && (p.lcap == 0 || it < p.lcap); it++) {
-      const int32_t* nr = node_row + (size_t)node * 12;
-      const int nstart = nr[0];
+      const int4 a = __ldg(rows + (size_t)node * 3);  // start, len, exts, ec
+      const int4 le = __ldg(rows + (size_t)node * 3 + 2);  // l_edge
       const int maxm = min(last_pos + 1, pko + 1);
       int matched, seen;
-      const bool prem = pa::segment_compare(
-          maxm, allowed,
-          [&](int i) { return pa::base_at(pool, nstart + pko - i); },
-          [&](int i) { return pa::base_at(read, last_pos - i); }, &matched,
-          &seen);
+      const bool prem = pa::segment_compare(maxm, allowed, -1, pw, a.x + pko,
+                                            rd, last_pos, &matched, &seen);
       cov += matched;
       mm += seen;
       const bool stop = (last_pos + 1 - matched == 0) || prem;
       const int lp2 = last_pos - matched;
       active = false;
       if (!stop) {
-        const int nb = pa::base_at(read, lp2);
-        if ((nr[2] >> (4 + nb)) & 1) {
-          const int nxt = nr[8 + nb];
-          const int32_t* nx = node_row + (size_t)nxt * 12;
-          push(nxt, nx[3]);
+        const int nb = pa::base_of(rd, lp2);
+        if ((a.z >> (4 + nb)) & 1) {
+          const int nxt = edge(le, nb);
+          const int4 nx = __ldg(rows + (size_t)nxt * 3);
+          out.push(p, nxt, nx.w);
           node = nxt;
-          pko = nx[1] - k;
+          pko = nx.y - k;
           active = true;
         }
       }
@@ -113,13 +136,13 @@ __global__ void walk_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
   if (seeded) {
     int node = node0, koff = off0, kpos = q0;
     bool active = true, seeking = false;
-    uint32_t w[pa::MAX_W];
     for (int it = 0; active && (p.wcap == 0 || it < p.wcap); it++) {
       if (seeking) {
         // one exact probe at kpos costs this whole iteration
         int pn, po;
-        pa::kmer_words(read, kpos, k, p.W, w);
-        pa::seed_probe(p, lv, ix, w, &pn, &po);
+        uint32_t w[W];
+        pa::kmer_words<W>(rd, kpos, k, w);
+        pa::seed_probe<W>(p, lv, ix, w, &pn, &po);
         if (pn >= 0) {
           node = pn;
           koff = po;
@@ -130,18 +153,17 @@ __global__ void walk_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
         }
         continue;
       }
-      const int32_t* nr = node_row + (size_t)node * 12;
+      const int4 a = __ldg(rows + (size_t)node * 3);  // start, len, exts, ec
+      const int4 re = __ldg(rows + (size_t)node * 3 + 1);  // r_edge
       kpos += k;
       cov += k;
-      push(node, nr[3]);
+      out.push(p, node, a.w);
       const int ref_off = koff + k;
-      const int nstart = nr[0] + ref_off;
-      const int maxm = max(min(len - kpos, nr[1] - ref_off), 0);
+      const int maxm = max(min(len - kpos, a.y - ref_off), 0);
       int matched, seen;
-      const bool prem = pa::segment_compare(
-          maxm, allowed, [&](int i) { return pa::base_at(pool, nstart + i); },
-          [&](int i) { return pa::base_at(read, kpos + i); }, &matched,
-          &seen);
+      const bool prem = pa::segment_compare(maxm, allowed, 1, pw,
+                                            a.x + ref_off, rd, kpos, &matched,
+                                            &seen);
       kpos += matched;
       cov += matched;
       mm += seen;
@@ -149,9 +171,9 @@ __global__ void walk_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
         active = false;
         continue;
       }
-      const int nb = pa::base_at(read, kpos);
-      if (!prem && ((nr[2] >> nb) & 1)) {
-        node = nr[4 + nb];
+      const int nb = pa::base_of(rd, kpos);
+      if (!prem && ((a.z >> nb) & 1)) {
+        node = edge(re, nb);
         koff = 0;
         kpos -= k - 1;
         cov -= k - 1;
@@ -160,11 +182,11 @@ __global__ void walk_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
       } else if (p.lazy && kpos % 3 != 0) {
         seeking = true;
       } else {
-        const int32_t* t = tbl + (size_t)kpos * 3;
-        if (t[0] < P) {
-          kpos = t[0];
-          node = t[1];
-          koff = t[2];
+        const int32_t* row = tbl + (size_t)kpos * 3;
+        if (row[0] < P) {
+          kpos = row[0];
+          node = row[1];
+          koff = row[2];
         } else {
           active = false;
         }
@@ -172,11 +194,25 @@ __global__ void walk_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
     }
     capped = capped || (p.wcap > 0 && active);
   }
-  capped = capped || nn > M;
+  capped = capped || out.nn > M;
 
   // ---- output ----
-  pa::encode_output(p, b, mybuf, nn, cov, mm, capped, mapped_out, cov_out,
-                    mm_out, nn_out, dist_out, nodes_out);
+  pa::encode_output(p, b, out, cov, mm, capped, o);
+}
+
+template <int W>
+cudaError_t launch_walk(const pa::Params& p, const pa::Levels& lv,
+                        const uint32_t* packed, const int32_t* lens,
+                        const int32_t* nh3, const uint32_t* pool,
+                        const int32_t* node_row, const pa::Index& ix,
+                        const pa::WalkOut& o, cudaStream_t stream) {
+  const size_t smem = (size_t)4 * THREADS * (p.nw + 2 + p.dc);
+  cudaError_t e = pa::allow_smem(walk_kernel<W>, smem);
+  if (e != cudaSuccess) return e;
+  const int blocks = (p.B + THREADS - 1) / THREADS;
+  walk_kernel<W><<<blocks, THREADS, smem, stream>>>(p, lv, packed, lens, nh3,
+                                                     pool, node_row, ix, o);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -185,18 +221,20 @@ extern "C" int pa_walk(const int64_t* params, const int64_t* index,
                        float left_frac, int device, const uint32_t* packed,
                        const int32_t* lens, const int32_t* nh3,
                        const uint32_t* pool, const int32_t* node_row,
-                       int32_t* buf, uint8_t* mapped,
-                       void* coverage, int32_t* mismatches, int32_t* n_nodes,
-                       void* ec_distinct, int32_t* nodes, void* stream) {
+                       uint8_t* mapped, void* coverage, int32_t* mismatches,
+                       int32_t* n_nodes, void* ec_distinct, int32_t* nodes,
+                       void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   pa::Params p = pa::params_from(params, left_frac);
   if (p.B == 0) return 0;
   const pa::Levels lv = pa::levels_from(params);
-  const int threads = 128;
-  int blocks = (p.B + threads - 1) / threads;
-  walk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      p, lv, packed, lens, nh3, pool, node_row, pa::index_from(index), buf,
-      mapped, coverage, mismatches, n_nodes, ec_distinct, nodes);
-  return (int)cudaGetLastError();
+  const pa::Index ix = pa::index_from(index);
+  const pa::WalkOut o{mapped, coverage, mismatches, n_nodes, ec_distinct,
+                      nodes};
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)pa::with_w(p.W, [&](auto w) {
+    return launch_walk<decltype(w)::value>(p, lv, packed, lens, nh3, pool,
+                                           node_row, ix, o, st);
+  });
 }

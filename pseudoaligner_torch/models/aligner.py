@@ -481,6 +481,16 @@ class Pseudoaligner:
     # native batch emit (the serving fast path)
     # ------------------------------------------------------------------
 
+    def emit_batch(self, result: MapResult, batch: ReadBatch,
+                   tcc=None) -> bytes:
+        """A whole batch's records, reference-style, through the native
+        emitter (compact mode); updates `tcc` counts if given.  The
+        synchronous form of emit_prepare + emit_finish: pipelined callers
+        (emit_fastq) run the two phases a batch apart, so that the
+        overflow re-map emit_prepare dispatches overlaps the next batch's
+        device step."""
+        return self.emit_finish(self.emit_prepare(result, batch, tcc))
+
     def emit_prepare(self, result: MapResult, batch: ReadBatch, tcc=None,
                      defer_group=False):
         """Phase 1: fetch compact outputs, dispatch the overflow re-map,

@@ -54,7 +54,7 @@ PARAM_NAMES = ("B", "nw", "L", "k", "lazy", "cuckoo_mask", "ones_node",
 # the seed index's arrays, as the host pointer vector of pa::index_from
 INDEX_ARRAYS = ("cuckoo", "cuckoo_vals", "mphf_bits", "mphf_ranks",
                 "kmer_keys", "kmer_node", "kmer_offset")
-MAX_DISTINCT_CAP = 64  # walk.cu's per-thread slot array
+MAX_DISTINCT_CAP = 64  # walk.cu's shared-memory slot columns (32 KB)
 
 _lock = threading.Lock()
 _lib = None
@@ -125,7 +125,7 @@ def _load():
             lib.pa_seed_tables.restype = _I
             lib.pa_seed_tables.argtypes = [_P, _P, _I, _P, _P, _P, _P]
             lib.pa_walk.restype = _I
-            lib.pa_walk.argtypes = [_P, _P, ctypes.c_float, _I] + [_P] * 13
+            lib.pa_walk.argtypes = [_P, _P, ctypes.c_float, _I] + [_P] * 12
             lib.pa_stats.restype = _I
             lib.pa_stats.argtypes = [_P, _P, _I, _P, _P, _P, _P]
             lib.pa_ec_bits.restype = _I
@@ -179,6 +179,12 @@ def _check(name, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
+def _check_aligned(name, t: torch.Tensor) -> None:
+    """The kernels read index rows in 16-byte loads."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data not 16-byte aligned")
+
+
 def _check_batch(meta: MapMeta, packed, lens):
     if not packed.is_cuda:
         raise ValueError("the CUDA kernels take CUDA tensors")
@@ -228,6 +234,8 @@ def _check_seed_index(meta: MapMeta, idx: DeviceIndex, dev) -> None:
     else:
         raise ValueError(f"seed_index={meta.seed_index!r}, expected one of "
                          f"{SEED_INDEXES}")
+    for name in ("cuckoo", "cuckoo_vals", "kmer_keys"):
+        _check_aligned(name, getattr(idx, name))
     if meta.seed_index != "mphf" and nb != meta.cuckoo_mask + 1:
         raise ValueError(f"{nb} bucket rows for cuckoo_mask "
                          f"{meta.cuckoo_mask}")
@@ -242,6 +250,7 @@ def _check_inputs(meta: MapMeta, idx: DeviceIndex, packed, lens,
            (idx.node_row.shape[0], 12), dev)
     _check("pool_rows", idx.pool_rows, torch.int32,
            (idx.pool_rows.shape[0], 8), dev)
+    _check_aligned("node_row", idx.node_row)
     if probes:
         _check_seed_index(meta, idx, dev)
     return B, dev
@@ -311,7 +320,6 @@ def walk_cuda(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
     B, dev = _check_inputs(meta, idx, packed, lens, probes=meta.lazy_seeds)
     _check("nh3", nh3, torch.int32, (B, meta.n_positions, 3), dev)
     lib = _load()
-    buf = torch.empty((B, M, 2), dtype=torch.int32, device=dev)
     mapped = torch.empty(B, dtype=torch.bool, device=dev)
     mismatches = torch.empty(B, dtype=torch.int32, device=dev)
     n_nodes = torch.empty(B, dtype=torch.int32, device=dev)
@@ -331,10 +339,9 @@ def walk_cuda(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
     rc = lib.pa_walk(
         params.data_ptr(), ptrs.data_ptr(), meta.left_extend_fraction,
         dev.index, packed.data_ptr(), lens.data_ptr(), nh3.data_ptr(),
-        idx.pool_rows.data_ptr(), idx.node_row.data_ptr(), buf.data_ptr(),
-        mapped.data_ptr(), coverage.data_ptr(), mismatches.data_ptr(),
-        n_nodes.data_ptr(), ec_distinct.data_ptr(), nodes.data_ptr(),
-        _stream(dev))
+        idx.pool_rows.data_ptr(), idx.node_row.data_ptr(), mapped.data_ptr(),
+        coverage.data_ptr(), mismatches.data_ptr(), n_nodes.data_ptr(),
+        ec_distinct.data_ptr(), nodes.data_ptr(), _stream(dev))
     _raise_on(lib, rc, "walk kernel")
     walk_cuda.launches += 1
     return MapResult(
@@ -607,6 +614,7 @@ def mphf_dynamic_cuda(queries: torch.Tensor, lookup,
                         ("key_offsets", (n_levels,)), ("keys", (K, W)),
                         ("values", (K, 2))):
         _check(name, getattr(lookup, name), torch.int32, shape, dev)
+    _check_aligned("keys", lookup.keys)
     lib = _load()
     out = torch.empty((N, 2), dtype=torch.int32, device=dev)
     rc = lib.pa_mphf_dynamic(

@@ -42,7 +42,8 @@ MPHF_FIELDS = ("seeds", "masks", "word_offsets", "key_offsets", "bits",
 
 def test_port_runs_without_the_reference(tmp_path):
     """In a process where pseudoaligner_tpu and jax cannot be imported,
-    chip_smoke and the port (its multi-device layer too) import, and the
+    chip_smoke and the port (the package root's AlignerConfig and
+    DEFAULT_CONFIG, its multi-device layer too) import, and the
     port's CLI builds an index, maps on the CPU under the cuckoo and MPHF
     seed indexes, maps pairs (checked against the golden pair rule),
     counts cells, and runs mappability, idxstats and inspect, on
@@ -62,7 +63,8 @@ def test_port_runs_without_the_reference(tmp_path):
         import torch
         import chip_smoke
         from pseudoaligner_torch import cli, golden
-        from pseudoaligner_torch.config import AlignerConfig
+        from pseudoaligner_torch import AlignerConfig, DEFAULT_CONFIG
+        assert DEFAULT_CONFIG == AlignerConfig()
         from pseudoaligner_torch.ops import kernels, map_kernel, stats
         from pseudoaligner_torch.parallel import (
             comm, dryrun, mesh, multihost, sharded_index)

@@ -6,7 +6,10 @@ fetch) against their plain PyTorch versions, under each seed index
 (cuckoo, bucket1, MPHF).
 
 The card tests carry the `gpu` marker and skip without a CUDA device;
-chip_smoke.py runs the same comparison at full size on the card.  The CPU
+chip_smoke.py runs the same comparison at full size on the card.  The edge
+cases hold K1's read tiles and K2's blocks at batch sizes around them,
+read widths with P % 3 != 0, every W (k = 15, 20, 33, 40, 64) and the full
+output at max_nodes 192, under each seed index.  The CPU
 tests pin the dispatch rule: CPU tensors take the plain passes and never
 reach a kernel wrapper, and the wrappers refuse CPU tensors.
 
@@ -122,6 +125,78 @@ def test_kernels_match_plain_on_cuda(name):
         a, b = getattr(got, f), getattr(want, f)
         assert a.dtype == b.dtype and a.shape == b.shape, f
         assert torch.equal(a, b), f
+
+
+SERVING = SHAPES["serving"][2]
+# (k, L, config, rows of the _case batch): batch sizes around K1's tiles
+# (12 to 32 reads) and K2's block of 128; L with P % 3 != 0 and L not a
+# multiple of 16; W = 1, 2, 3, 4 (k = 64: the all-ones k-mer); reads
+# exactly k long (L = k) and shorter (every _data batch has them); the full
+# output at max_nodes 192; long reads, whose probes stride over K1's block
+EDGES = {
+    "B0": (20, 64, SERVING, slice(0, 0)),
+    "B1": (20, 64, SERVING, slice(0, 1)),
+    "B33": (20, 64, SERVING, slice(0, 33)),
+    "B129_eager": (20, 64, SHAPES["full_eager_seeds"][2], slice(0, 129)),
+    "L60_P41": (20, 60, SERVING, None),
+    "L62_P43": (20, 62, SERVING, None),
+    "k15_W1": (15, 40, SERVING, None),
+    "k33_W3": (33, 50, SERVING, None),
+    "k40_W3": (40, 77, SERVING, None),
+    "k64_L64": (64, 64, SERVING, None),
+    "k64_eager": (64, 96, dict(SERVING, lazy_seeds=False), None),
+    "full_M192": (20, 64, dict(distinct_cap=0, max_nodes=192,
+                               lazy_seeds=False), None),
+    "L300_eager": (20, 300, dict(SERVING, lazy_seeds=False), None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["cuckoo", "bucket1", "mphf"])
+@pytest.mark.parametrize("name", list(EDGES))
+def test_kernel_edges_match_plain_on_cuda(name, mode):
+    """K1 and K2 against the plain passes at the edges of their tiles and
+    templates, in the case's shape and in the uncapped full output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    k, L, kw, rows = EDGES[name]
+    meta, idx, packed, lens = _case(k, L, dict(kw, seed_index=mode), "cuda")
+    if rows is not None:
+        packed, lens = packed[rows].contiguous(), lens[rows].contiguous()
+    nh3 = kernels.seed_tables_cuda(meta, idx, packed, lens)
+    assert torch.equal(nh3, mk.seed_tables(meta, idx, packed, lens))
+    full = dataclasses.replace(meta, distinct_cap=0, max_walk_iters=0,
+                               max_left_iters=0,
+                               max_nodes=max(meta.max_nodes, 2 * L))
+    for m in (meta, full):
+        got = kernels.walk_cuda(m, idx, packed, lens, nh3)
+        want = mk.walk(m, idx, packed, lens, nh3)
+        torch.cuda.synchronize()
+        for f in want._fields:
+            a, b = getattr(got, f), getattr(want, f)
+            assert a.dtype == b.dtype and a.shape == b.shape, f
+            assert torch.equal(a, b), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,P", [(0, 41), (1, 41), (37, 41), (70, 45),
+                                 (33, 1), (5, 2), (40, 300)])
+def test_next_hit_edges_match_plain_on_cuda(B, P):
+    """K1's next_hit entry on seed tables with empty rows (no valid seed),
+    lens from 0 past L, B around the tile, P from 1 to 300."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(B * 1000 + P)
+    node = rng.integers(0, 50, (B, P)).astype(np.int32)
+    node[rng.random((B, P)) < 0.5] = -1
+    node[::3] = -1  # rows with no valid seed
+    off = rng.integers(0, 9, (B, P)).astype(np.int32)
+    lens = rng.integers(0, P + 25, B).astype(np.int32)
+    args = [torch.from_numpy(a).to("cuda") for a in (node, off, lens)]
+    got = kernels.next_hit_cuda(*args, 20)
+    want = mk.next_hit_table(*args, 20, P)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -298,6 +373,15 @@ def test_seed_index_checks(mode):
     assert len(p) == len(kernels.PARAM_NAMES) + 4 * n
     assert p[kernels.PARAM_NAMES.index("mode")] == mk.SEED_INDEXES.index(mode)
     assert tuple(p[len(kernels.PARAM_NAMES):][:n]) == meta.mphf.seeds
+
+
+def test_index_arrays_must_be_aligned():
+    """The kernels read node rows and bucket rows in 16-byte loads: the
+    wrappers refuse index arrays that do not start on 16 bytes."""
+    whole = torch.zeros(13, dtype=torch.int32)
+    kernels._check_aligned("node_row", whole[:12])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kernels._check_aligned("node_row", whole[1:])
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -136,6 +136,43 @@ def test_map_step_seam_matches_reference(workload):
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
+def test_emit_batch_matches_reference(workload, tmp_path, name):
+    """emit_batch, the synchronous emit_prepare + emit_finish, gives the
+    reference's bytes and TCC counts batch by batch."""
+    from pseudoaligner_tpu.io.fastq import FastqReader as RefReader
+    from pseudoaligner_tpu.tcc import TccCounter as RefTcc
+    from pseudoaligner_torch.io.fastq import FastqReader
+    from pseudoaligner_torch.tcc import TccCounter
+
+    image, fq, _, _ = workload
+    seqs = family_transcripts(np.random.default_rng(515))[0]  # the index's
+    short = str(tmp_path / "short.fq")  # no read past max_read_len
+    write_fastq(short, _fuzz_reads(np.random.default_rng(77), seqs, k=20,
+                                   n=300, L=72))
+    cfg = AlignerConfig(k=20, batch_size=128, max_read_len=96,
+                        **dict(CONFIGS[name], distinct_cap=3))
+    ref, al = RefAligner(image, cfg), Pseudoaligner(image, cfg, device="cpu")
+    want_tcc, got_tcc = RefTcc(), TccCounter()
+    n = 0
+    try:
+        for rb, pb in zip(RefReader(short, batch_size=128, max_len=96),
+                          FastqReader(short, batch_size=128, max_len=96)):
+            want = ref.emit_batch(ref.map_batch_device(rb.codes, rb.lens),
+                                  rb, want_tcc)
+            got = al.emit_batch(al.map_batch_device(pb.codes, pb.lens), pb,
+                                got_tcc)
+            assert got == want and got.count(b"\n") == pb.n_reads
+            n += pb.n_reads
+    finally:
+        al.close()
+    assert n == 300
+    assert (got_tcc.classes, got_tcc.counts, got_tcc.n_reads,
+            got_tcc.n_mapped) == (want_tcc.classes, want_tcc.counts,
+                                  want_tcc.n_reads, want_tcc.n_mapped)
+    assert got_tcc.n_mapped > 0
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
 def test_golden_records_match_emit(workload, name):
     """The scalar oracle's records (the check chip_smoke.py makes on the
     card) equal the emitted ones for every read that fits a batch."""
