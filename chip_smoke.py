@@ -31,8 +31,8 @@ Phases (every number printed is for the card named on the first line):
    times the serving emit loop (reads/s without set-up), then traces it
    once more for the device's busy share and its time per batch in copies
    and kernels;
-5. bucket1 and MPHF seed indexes on the same index image: device bytes and
-   serve-init time; K1 under each and K2 in the bucket1 serving shape
+5. bucket1 and MPHF seed indexes on the same index image: device bytes
+   (each upload's bytes are its arrays' bytes) and serve-init time; K1 under each and K2 in the bucket1 serving shape
    (lazy seeds) on 4 batches spread over the file, K2 in the MPHF uncapped
    full-output shape on the middle one, and the stats kernel (K3) against
    `batch_stats`' plain version on the last one (its reversed reads give
@@ -77,7 +77,10 @@ Phases (every number printed is for the card named on the first line):
    unscatter, at 1, 2, 4 and 8 shards), the shard-local MPHF probe (K8)
    and K1's next_hit entry equal, tolerance 0, to their plain versions on
    --batches' first 4 batches (next_hit also to K1's table over the whole
-   MPHF), and timed; (b) the k-mer-partitioned serving aligner over the
+   MPHF; K8 also on a buffer, three quarters zero padding, of a small
+   lookup whose keys hold the all-zero poly-A k-mer), and timed; the
+   lookup bytes per shard (S = 1 here, S = 4 in (c)) are the separate
+   arrays' bytes; (b) the k-mer-partitioned serving aligner over the
    NCCL group emits every batch of the file, byte-identical to phase 6's
    cuckoo CLI output (K6, K7, K8, next_hit and K2 must have launched);
    (c) four loopback shards on the card give the replicated engine's
@@ -137,6 +140,8 @@ BATCH = 65536
 N_GOLDEN = 2000
 MODE_BATCHES = 4  # batches compared in the bucket1 / MPHF serving shape
 CUCKOO_BYTES = 546_199_872  # cuckoo serving index at the default arguments
+# a kpart shard's lookup at the default arguments, S = 1 and S = 4
+LOOKUP_BYTES = {1: 459_450_424, 4: 114_898_008}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12  # H100 SXM 32-bit peak outside the tensor cores
 
@@ -686,6 +691,20 @@ def gfetch_work(recv, ww):
     return nbytes, valid * (12 + 3 * ww)
 
 
+def lookup_bytes(lookups, S: int, defaults: bool) -> int:
+    """A kpart shard's lookup bytes (every shard's are equal): each storage
+    once, and no more than the separate arrays' bytes (K8's paired words and
+    16-byte records at k = 20); at the default arguments LOOKUP_BYTES[S]."""
+    got = {lk.nbytes() for lk in lookups}
+    arrays = {sum(a.numel() * a.element_size() for a in lk)
+              for lk in lookups}
+    if len(got) != 1 or got != arrays or (defaults
+                                          and got != {LOOKUP_BYTES[S]}):
+        raise AssertionError(f"lookup bytes per shard {got}, arrays "
+                             f"{arrays}, expected {LOOKUP_BYTES[S]} at S={S}")
+    return got.pop()
+
+
 def host_counts(records, n_tx):
     """Per-transcript counts of reference-style records (the class list
     between the last '[' and the ']' after it)."""
@@ -834,6 +853,13 @@ def main(argv=None) -> int:
         t = time.time()
         al = Pseudoaligner(image, cfg, device="cuda")
         torch.cuda.synchronize()
+        # each storage once (the MPHF's paired bit and rank words) is the
+        # arrays' bytes: the paired layout adds none
+        arrays = sum(getattr(al.dev, f.name).numel() * 4
+                     for f in dataclasses.fields(al.dev))
+        if al.dev.nbytes() != arrays:
+            raise AssertionError(f"[{mode}] upload {al.dev.nbytes()} B, its "
+                                 f"arrays {arrays} B")
         say(f"[{mode}] serve init (device index build + upload) "
             f"{time.time() - t:.1f} s; index device bytes {al.dev.nbytes()}")
         return cfg, al
@@ -1407,7 +1433,7 @@ def main(argv=None) -> int:
     kp = si.KmerPartitionedAligner(image, cfg_s, mesh1)
     torch.cuda.synchronize()
     km = kp.kmeta
-    lk_bytes = sum(a.numel() * 4 for a in kp.lookups[0])
+    lk_bytes = lookup_bytes(kp.lookups, 1, defaults)
     say(f"[multi] kpart S=1 set-up (sharded lookup build, graph and lookup "
         f"upload) {time.time() - t:.1f} s: {km.n_levels} levels, cap "
         f"{km.cap} per destination, lookup bytes per shard {lk_bytes}, "
@@ -1477,10 +1503,40 @@ def main(argv=None) -> int:
         srcs.append(src.reshape(-1))
         seeds_k.append((node, off))
     del mdev
+    # the send buffers' padding is the all-zero query, which K8 probes once
+    # per launch: where poly-A is not a key (this index) and, on a small
+    # lookup of a transcript set with a poly-A run, where it is
+    from pseudoaligner_torch.index.builder import build_index
+
+    rng = np.random.default_rng(args.seed + 5)
+    pa_seqs = [rng.integers(0, 4, 2000).astype(np.uint8) for _ in range(50)]
+    pa_seqs.append(np.zeros(300, np.uint8))
+    pa_names = [f"pa{i}" for i in range(len(pa_seqs))]
+    pa_image = build_index(pa_seqs, pa_names, {n: "g" for n in pa_names},
+                           k=20)
+    polya = [bool(np.all(im.kmer_keys == 0, axis=1).any())
+             for im in (image, pa_image)]
+    if polya != [False, True]:
+        raise AssertionError(f"poly-A a key of (index, small set): {polya}")
+    pa_np, pa_levels = si.build_sharded_lookup(pa_image, 1)
+    pa_shard = si.upload_lookup(pa_np, 0, dev)
+    pa_keys = pa_image.kmer_keys[rng.permutation(len(pa_image.kmer_keys))]
+    pa_q = np.zeros((4 * len(pa_keys), pa_keys.shape[1]), np.uint32)
+    pa_q[:len(pa_keys)] = pa_keys
+    pa_q = torch.from_numpy(pa_q.view(np.int32)).to(dev)
+    pa_res = kernels.mphf_dynamic_cuda(pa_q, pa_shard, pa_levels)
+    err["mphf_dynamic"] = max(err["mphf_dynamic"], max_abs_diff(
+        pa_res, dynamic_verified_lookup(pa_q, pa_shard, pa_levels)))
+    if err["mphf_dynamic"] or not bool((pa_res[len(pa_keys):, 0] >= 0).all()):
+        raise AssertionError(f"mphf_dynamic on the poly-A buffer: differs by "
+                             f"{err['mphf_dynamic']} or padding missed")
+    del pa_shard, pa_q, pa_res
     torch.cuda.synchronize()
     say(f"[multi] mphf_dynamic kernel == plain over {km.cap} queries per "
-        f"batch ({MODE_BATCHES} batches, S = 1); next_hit kernel == plain "
-        "== K1's table over the whole MPHF; tolerance 0")
+        f"batch ({MODE_BATCHES} batches, S = 1; poly-A not a key) and over "
+        f"{4 * len(pa_keys)} queries, three quarters zero padding, of a "
+        f"{len(pa_keys)}-key lookup whose keys hold poly-A; next_hit kernel "
+        "== plain == K1's table over the whole MPHF; tolerance 0")
     bounds["pack"] = bound([pack_work(c) for c in codes])
     bounds["route"] = bound([route_work(packed[b], lens, 20, READ_LEN, 1,
                                         km.cap) for b in range(MODE_BATCHES)])
@@ -1552,7 +1608,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     say(f"[multi] kpart S=4 (loopback) set-up {time.time() - t:.1f} s: cap "
         f"{kp4.kmeta.cap}, lookup bytes per shard "
-        f"{[sum(a.numel() * 4 for a in lk) for lk in kp4.lookups]}")
+        f"{lookup_bytes(kp4.lookups, 4, defaults)}")
     base = Pseudoaligner(image, cfg_eager, device="cuda")
     for b in range(MODE_BATCHES):
         rows = reads[b * BATCH:(b + 1) * BATCH]

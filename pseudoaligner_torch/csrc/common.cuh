@@ -14,9 +14,10 @@
 //               bucket1 mode: [NB, 16*(W+2)] uint32 rows of (key words, node,
 //                             offset) slots; empty slots have node EMPTY
 //   cuckoo_vals [NB*4*2] uint32 flat (node, offset) per cuckoo slot
-//   mphf_bits   [bw] uint32 level bit words, mphf_ranks [bw] set bits of the
-//               level before each word; kmer_keys [nk, W] uint32,
-//               kmer_node / kmer_offset [nk] int32, all in MPHF slot order
+//   mphf_pairs  [bw, 2] uint32: each MPHF level word's bits and the set bits
+//               of the level before it, side by side (one 8-byte load);
+//               kmer_keys [nk, W] uint32, kmer_node / kmer_offset [nk]
+//               int32, all in MPHF slot order
 //   nh3         [B, P, 3] int32 (q, node, off)
 //
 // What bounds the kernels that use this file, and what the shared pieces do
@@ -123,8 +124,7 @@ inline Levels levels_from(const int64_t* v) {
 struct Index {
   const uint32_t* cuckoo;
   const uint32_t* vals;
-  const uint32_t* bits;
-  const uint32_t* ranks;
+  const uint2* pairs;  // (bit word, rank word) per MPHF level word
   const uint32_t* keys;
   const int32_t* knode;
   const int32_t* koff;
@@ -134,11 +134,10 @@ inline Index index_from(const int64_t* ptrs) {
   Index ix;
   ix.cuckoo = reinterpret_cast<const uint32_t*>(ptrs[0]);
   ix.vals = reinterpret_cast<const uint32_t*>(ptrs[1]);
-  ix.bits = reinterpret_cast<const uint32_t*>(ptrs[2]);
-  ix.ranks = reinterpret_cast<const uint32_t*>(ptrs[3]);
-  ix.keys = reinterpret_cast<const uint32_t*>(ptrs[4]);
-  ix.knode = reinterpret_cast<const int32_t*>(ptrs[5]);
-  ix.koff = reinterpret_cast<const int32_t*>(ptrs[6]);
+  ix.pairs = reinterpret_cast<const uint2*>(ptrs[2]);
+  ix.keys = reinterpret_cast<const uint32_t*>(ptrs[3]);
+  ix.knode = reinterpret_cast<const int32_t*>(ptrs[4]);
+  ix.koff = reinterpret_cast<const int32_t*>(ptrs[5]);
   return ix;
 }
 
@@ -362,24 +361,39 @@ __device__ __forceinline__ void bucket1_probe(const Params& p,
 }
 
 // BBHash level probe: per level, hash with the level's seed, mask, read the
-// bit word and its rank word; the first level whose bit is set gives the
-// slot key_off + rank + popcount(bits below), in 32-bit arithmetic as the
-// reference's int32.  -1 when no level's bit is set.  An alien k-mer can
-// land on a set bit: the caller verifies the stored key.
-template <int W>
+// level word's (bit word, rank word) pair in one 8-byte load; the first
+// level whose bit is set gives the slot key_off + rank + popcount(bits
+// below), in 32-bit arithmetic as the reference's int32.  -1 when no
+// level's bit is set.  An alien k-mer can land on a set bit: the caller
+// verifies the stored key.  The pairs of the first AHEAD levels are loaded
+// together before any is tested (one round trip where the chain would take
+// AHEAD); the levels after them one at a time.
+template <int W, int AHEAD = 1>
 __device__ __forceinline__ int mphf_slot(int n_levels, const Levels& lv,
-                                         const uint32_t* bits,
-                                         const uint32_t* ranks,
+                                         const uint2* pairs,
                                          const uint32_t (&w)[W]) {
-  for (int l = 0; l < n_levels; l++) {
+  uint32_t bp[AHEAD];
+  uint2 pr[AHEAD];
+#pragma unroll
+  for (int l = 0; l < AHEAD; l++) {
     const uint32_t h = hash_words<W>(w, lv.seed[l]) & lv.mask[l];
-    const uint32_t wi = lv.word_off[l] + (h >> 5);
-    const uint32_t word = bits[wi];
-    const uint32_t bp = h & 31u;
-    if ((word >> bp) & 1u) {
-      const uint32_t below = word & ((1u << bp) - 1u);
-      return (int)(lv.key_off[l] + ranks[wi] + (uint32_t)__popc(below));
-    }
+    bp[l] = h & 31u;
+    pr[l] = l < n_levels ? __ldg(pairs + lv.word_off[l] + (h >> 5))
+                         : make_uint2(0u, 0u);
+  }
+#pragma unroll
+  for (int l = 0; l < AHEAD; l++) {
+    if ((pr[l].x >> bp[l]) & 1u)
+      return (int)(lv.key_off[l] + pr[l].y +
+                   (uint32_t)__popc(pr[l].x & ((1u << bp[l]) - 1u)));
+  }
+  for (int l = AHEAD; l < n_levels; l++) {
+    const uint32_t h = hash_words<W>(w, lv.seed[l]) & lv.mask[l];
+    const uint2 p = __ldg(pairs + lv.word_off[l] + (h >> 5));
+    const uint32_t b = h & 31u;
+    if ((p.x >> b) & 1u)
+      return (int)(lv.key_off[l] + p.y +
+                   (uint32_t)__popc(p.x & ((1u << b) - 1u)));
   }
   return -1;
 }
@@ -408,7 +422,7 @@ __device__ __forceinline__ void mphf_verified_probe(const Params& p,
                                                     const Index& ix,
                                                     const uint32_t (&w)[W],
                                                     int* node, int* off) {
-  const int slot = mphf_slot<W>(p.n_levels, lv, ix.bits, ix.ranks, w);
+  const int slot = mphf_slot<W>(p.n_levels, lv, ix.pairs, w);
   if (slot >= 0 && key_at_slot_equals<W>(ix.keys, slot, w)) {
     *node = __ldg(ix.knode + slot);
     *off = __ldg(ix.koff + slot);

@@ -6,20 +6,36 @@
 // with the stored-key verify and the value gather that follow it in
 // parallel/sharded_index.py::_routed_seed_tables (:327-343).
 //
+// Layouts (parallel/sharded_index.py upload_lookup): the shard's MPHF level
+// words as (bit word, rank word) pairs, one 8-byte load per level tried;
+// its slots as records of RW = 4 or 8 words (W key words, node, offset,
+// zero padding), so the verify and the value gather are one 16- or 32-byte
+// load of one sector.
+//
 // Each shard holds its own sub-MPHF, so the level table (seeds, masks, word
 // and key offsets; n_levels <= MAX_LEVELS) comes from device memory, not
 // from the launch parameters as in K1.  Each block copies it into shared
 // memory, then one thread per query runs common.cuh's mphf_slot over it
-// (the first level whose bit is set gives the slot) and key_at_slot_equals,
-// both for the W the launch picks (the stored key in 8- or 16-byte loads,
-// so the wrapper asks for a 16-byte aligned key array).
-// Levels padded past a shard's own have mask 0 and point at a zero word,
-// so they never hit.  Every buffer slot is probed, zero-key padding
-// included, as the reference does.
+// (the first level whose bit is set gives the slot) and verifies and reads
+// the record at the slot, for the W the launch picks.  Levels padded past a
+// shard's own have mask 0 and point at a zero word, so they never hit.
 //
-// Bound on the H100: memory bytes.  Per query its W key words, a bit word
-// per level tried, and where a bit is set the rank word and the stored key,
-// all random reads into the shard's arrays; the [N, 2] results written.
+// The send buffers are mostly padding: every unused slot holds the
+// all-zero query (at S = 1 three slots in four), and every all-zero query
+// has the same answer, the lookup of the poly-A k-mer, whether or not that
+// k-mer is a key.  So a one-block pre-pass probes the zero key once per
+// launch, and a thread whose query words are all zero writes that answer
+// without hashing or probing: the output is the reference's at every slot,
+// padding included.  Padding fills the tail of each source's segment, so
+// whole warps take that path.
+//
+// Bound on the H100: memory bytes, but what limits it is the number of
+// dependent random reads per query and how many are in flight: per real
+// query its W key words, a pair per level tried (the pair array mostly
+// L2-resident) and one record sector where a level's bit is set; the
+// [N, 2] results written.
+
+#include <cstdlib>
 
 #include "common.cuh"
 
@@ -27,66 +43,116 @@ namespace {
 
 struct Dyn {
   int64_t n;
-  int W, n_levels;
+  int n_levels;
   const uint32_t* queries;
-  const uint32_t* bits;
-  const uint32_t* ranks;
+  const uint2* pairs;
   const uint32_t* seeds;
   const uint32_t* masks;
   const int32_t* word_offsets;
   const int32_t* key_offsets;
-  const uint32_t* keys;
-  const int32_t* values;
+  const uint32_t* records;
 };
 
+// Words of a record of W key words, node and offset (sharded_index.py
+// record_words).
 template <int W>
-__global__ void mphf_dynamic_kernel(Dyn a, int32_t* __restrict__ out) {
-  __shared__ pa::Levels lv;
+constexpr int record_words() {
+  return W + 2 <= 4 ? 4 : 8;
+}
+
+// The shard's level table into shared memory (all threads of the block;
+// the caller synchronises).
+__device__ __forceinline__ void load_levels(const Dyn& a, pa::Levels& lv) {
   for (int i = threadIdx.x; i < a.n_levels; i += blockDim.x) {
     lv.seed[i] = a.seeds[i];
     lv.mask[i] = a.masks[i];
     lv.word_off[i] = (uint32_t)a.word_offsets[i];
     lv.key_off[i] = (uint32_t)a.key_offsets[i];
   }
+}
+
+// (node, offset) of the query words w: the record at the MPHF slot when its
+// key equals w, else (-1, -1).
+template <int W, int AHEAD>
+__device__ __forceinline__ int2 lookup(const Dyn& a, const pa::Levels& lv,
+                                       const uint32_t (&w)[W]) {
+  constexpr int RW = record_words<W>();
+  const int slot = pa::mphf_slot<W, AHEAD>(a.n_levels, lv, a.pairs, w);
+  int2 r = make_int2(-1, -1);
+  if (slot >= 0) {
+    uint32_t rec[RW];
+    pa::load_words<RW>(a.records + (size_t)slot * RW, rec);
+    bool eq = true;
+#pragma unroll
+    for (int j = 0; j < W; j++) eq = eq && (rec[j] == w[j]);
+    if (eq) r = make_int2((int)rec[W], (int)rec[W + 1]);
+  }
+  return r;
+}
+
+// The pre-pass: the all-zero query's result into *zero.
+template <int W, int AHEAD>
+__global__ void zero_key_kernel(Dyn a, int2* __restrict__ zero) {
+  __shared__ pa::Levels lv;
+  load_levels(a, lv);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const uint32_t w[W] = {};
+    *zero = lookup<W, AHEAD>(a, lv, w);
+  }
+}
+
+template <int W, int AHEAD>
+__global__ void mphf_dynamic_kernel(Dyn a, const int2* __restrict__ zero,
+                                    int skip_zero, int2* __restrict__ out) {
+  __shared__ pa::Levels lv;
+  load_levels(a, lv);
   __syncthreads();
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= a.n) return;
   uint32_t w[W];
+  pa::load_words<W>(a.queries + t * W, w);
+  uint32_t any = 0;
 #pragma unroll
-  for (int j = 0; j < W; j++) w[j] = a.queries[t * W + j];
-  const int slot = pa::mphf_slot<W>(a.n_levels, lv, a.bits, a.ranks, w);
-  int node = -1, off = -1;
-  if (slot >= 0 && pa::key_at_slot_equals<W>(a.keys, slot, w)) {
-    node = a.values[2 * (int64_t)slot];
-    off = a.values[2 * (int64_t)slot + 1];
-  }
-  out[2 * t] = node;
-  out[2 * t + 1] = off;
+  for (int j = 0; j < W; j++) any |= w[j];
+  out[t] = (any == 0 && skip_zero) ? __ldg(zero) : lookup<W, AHEAD>(a, lv, w);
 }
 
 }  // namespace
 
 extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
-                               const uint32_t* queries, const uint32_t* bits,
-                               const uint32_t* ranks, const uint32_t* seeds,
-                               const uint32_t* masks,
+                               const uint32_t* queries, const uint2* pairs,
+                               const uint32_t* seeds, const uint32_t* masks,
                                const int32_t* word_offsets,
                                const int32_t* key_offsets,
-                               const uint32_t* keys, const int32_t* values,
+                               const uint32_t* records, int32_t* zero,
                                int32_t* out, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (W < 1 || W > pa::MAX_W || n_levels < 1 || n_levels > pa::MAX_LEVELS)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  Dyn a = {n, W, n_levels, queries, bits, ranks, seeds, masks,
-           word_offsets, key_offsets, keys, values};
+  Dyn a = {n, n_levels, queries, pairs, seeds, masks, word_offsets,
+           key_offsets, records};
   const int threads = 256;
   const int blocks = (int)((n + threads - 1) / threads);
   cudaStream_t st = (cudaStream_t)stream;
+  // TRIAL knobs (read per launch)
+  const char* ev = getenv("PA_TRIAL_K8_ZERO");
+  const int skip = ev ? atoi(ev) : 1;
+  ev = getenv("PA_TRIAL_K8_AHEAD");
+  const int ahead = ev ? atoi(ev) : 1;
+  int2* z = reinterpret_cast<int2*>(zero);
+  int2* o = reinterpret_cast<int2*>(out);
   return (int)pa::with_w(W, [&](auto w) {
-    mphf_dynamic_kernel<decltype(w)::value>
-        <<<blocks, threads, 0, st>>>(a, out);
+    constexpr int WW = decltype(w)::value;
+    if (ahead == 2) {
+      if (skip) zero_key_kernel<WW, 2><<<1, 64, 0, st>>>(a, z);
+      mphf_dynamic_kernel<WW, 2><<<blocks, threads, 0, st>>>(a, z, skip, o);
+    } else {
+      if (skip) zero_key_kernel<WW, 1><<<1, 64, 0, st>>>(a, z);
+      mphf_dynamic_kernel<WW, 1><<<blocks, threads, 0, st>>>(a, z, skip, o);
+    }
     return cudaGetLastError();
   });
 }

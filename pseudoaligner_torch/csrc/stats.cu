@@ -20,13 +20,15 @@
 // random reads from arrays far larger than the 50 MB L2 at GENCODE scale.
 // The counters cost one atomic per block.
 
+#include <cstdlib>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 
-template <int W>
+template <int W, int AHEAD>
 __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
                              const uint32_t* __restrict__ packed,
                              const int32_t* __restrict__ lens, pa::Index ix,
@@ -41,7 +43,7 @@ __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv
       uint32_t w[W];
       pa::kmer_words<W>(pa::window_words(packed + (size_t)b * p.nw, p.nw),
                         pos, p.k, w);
-      const int slot = pa::mphf_slot<W>(p.n_levels, lv, ix.bits, ix.ranks, w);
+      const int slot = pa::mphf_slot<W, AHEAD>(p.n_levels, lv, ix.pairs, w);
       if (slot >= 0) {
         if (pa::key_at_slot_equals<W>(ix.keys, slot, w))
           hit = 1;
@@ -95,9 +97,49 @@ extern "C" int pa_stats(const int64_t* params, const int64_t* index,
   const int64_t n = (int64_t)p.B * p.P;
   const int blocks = (int)((n + THREADS - 1) / THREADS);
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)pa::with_w(p.W, [&](auto w) {
-    stats_kernel<decltype(w)::value><<<blocks, THREADS, 0, st>>>(
-        p, lv, packed, lens, ix, counts);
-    return cudaGetLastError();
+  // TRIAL knobs (read per launch): levels loaded together, and the bytes
+  // of the pair array to keep persisting in L2 (0: no window), a launch
+  // attribute of this launch alone
+  const char* ev = getenv("PA_TRIAL_STATS_AHEAD");
+  const int ahead = ev ? atoi(ev) : 2;
+  ev = getenv("PA_TRIAL_STATS_L2");
+  const size_t l2 = ev ? (size_t)atoll(ev) : 0;
+  cudaLaunchAttribute attr[1] = {};
+  if (l2) {
+    int dev = 0, max_win = 0, max_persist = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&max_win, cudaDevAttrMaxAccessPolicyWindowSize,
+                           dev);
+    cudaDeviceGetAttribute(&max_persist, cudaDevAttrMaxPersistingL2CacheSize,
+                           dev);
+    const size_t win = l2 < (size_t)max_win ? l2 : (size_t)max_win;
+    const size_t keep =
+        win < (size_t)max_persist ? win : (size_t)max_persist;
+    e = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, keep);
+    if (e != cudaSuccess) return (int)e;
+    attr[0].id = cudaLaunchAttributeAccessPolicyWindow;
+    attr[0].val.accessPolicyWindow.base_ptr = (void*)ix.pairs;
+    attr[0].val.accessPolicyWindow.num_bytes = win;
+    attr[0].val.accessPolicyWindow.hitRatio =
+        win ? (float)keep / (float)win : 0.f;
+    attr[0].val.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
+    attr[0].val.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = l2 ? 1 : 0;
+  cudaError_t r = pa::with_w(p.W, [&](auto w) {
+    constexpr int WW = decltype(w)::value;
+    cudaError_t er =
+        ahead == 2
+            ? cudaLaunchKernelEx(&cfg, stats_kernel<WW, 2>, p, lv, packed,
+                                 lens, ix, counts)
+            : cudaLaunchKernelEx(&cfg, stats_kernel<WW, 1>, p, lv, packed,
+                                 lens, ix, counts);
+    return er != cudaSuccess ? er : cudaGetLastError();
   });
+  return (int)r;
 }

@@ -52,8 +52,8 @@ PARAM_NAMES = ("B", "nw", "L", "k", "lazy", "cuckoo_mask", "ones_node",
                "ones_off", "allowed", "max_nodes", "lcap", "wcap", "dc",
                "ec16", "cov8", "mode", "bucket_seed", "n_levels")
 # the seed index's arrays, as the host pointer vector of pa::index_from
-INDEX_ARRAYS = ("cuckoo", "cuckoo_vals", "mphf_bits", "mphf_ranks",
-                "kmer_keys", "kmer_node", "kmer_offset")
+INDEX_ARRAYS = ("cuckoo", "cuckoo_vals", "mphf_pairs", "kmer_keys",
+                "kmer_node", "kmer_offset")
 MAX_DISTINCT_CAP = 64  # walk.cu's shared-memory slot columns (32 KB)
 
 _lock = threading.Lock()
@@ -141,7 +141,7 @@ def _load():
             lib.pa_unscatter.restype = _I
             lib.pa_unscatter.argtypes = [_I, _L, _L] + [_P] * 5
             lib.pa_mphf_dynamic.restype = _I
-            lib.pa_mphf_dynamic.argtypes = [_I, _L, _I, _I] + [_P] * 11
+            lib.pa_mphf_dynamic.argtypes = [_I, _L, _I, _I] + [_P] * 10
             lib.pa_tx_counts.restype = _I
             lib.pa_tx_counts.argtypes = [_I] * 4 + [_P] * 3
             lib.pa_ec_bits_classes.restype = _I
@@ -211,8 +211,8 @@ def _check_mphf(meta: MapMeta, idx: DeviceIndex, dev) -> None:
         raise ValueError(f"MPHF arrays of {bw} words and {nk} keys do not "
                          "hold the index's levels (a serving upload of "
                          "another seed index carries them empty)")
-    _check("mphf_bits", idx.mphf_bits, torch.int32, (bw,), dev)
-    _check("mphf_ranks", idx.mphf_ranks, torch.int32, (bw,), dev)
+    _check("mphf_pairs", idx.mphf_pairs, torch.int32, (bw, 2), dev)
+    _check_aligned("mphf_pairs", idx.mphf_pairs)
     _check("kmer_keys", idx.kmer_keys, torch.int32, (nk, meta.kmer_words),
            dev)
     _check("kmer_node", idx.kmer_node, torch.int32, (nk,), dev)
@@ -595,9 +595,10 @@ unscatter_cuda.launches = 0
 def mphf_dynamic_cuda(queries: torch.Tensor, lookup,
                       n_levels: int) -> torch.Tensor:
     """K8: queries [N, W] int32 (uint32 bit patterns) against one shard's
-    sub-index `lookup` (a ShardedLookup of that shard's tensors: bits and
-    ranks [Wmax], seeds, masks, word_offsets, key_offsets [n_levels],
-    keys [K, W], values [K, 2], all int32) -> [N, 2] int32 (node, offset),
+    sub-index `lookup` (a ShardedLookup of that shard's tensors as
+    upload_lookup lays them out: the [Wmax, 2] bit and rank pairs, seeds,
+    masks, word_offsets, key_offsets [n_levels], the [K, RW] records of
+    key words, node and offset, all int32) -> [N, 2] int32 (node, offset),
     -1 on a miss, as mphf_lookup.dynamic_verified_lookup (see
     csrc/mphfdyn.cu)."""
     if not queries.is_cuda:
@@ -607,21 +608,29 @@ def mphf_dynamic_cuda(queries: torch.Tensor, lookup,
     if not 0 < n_levels <= MAX_LEVELS:
         raise ValueError(f"{n_levels} levels, expected 1 to {MAX_LEVELS}")
     _check("queries", queries, torch.int32, (N, W), dev)
-    nb, K = lookup.bits.shape[0], lookup.keys.shape[0]
-    for name, shape in (("bits", (nb,)), ("ranks", (nb,)),
-                        ("seeds", (n_levels,)), ("masks", (n_levels,)),
-                        ("word_offsets", (n_levels,)),
-                        ("key_offsets", (n_levels,)), ("keys", (K, W)),
-                        ("values", (K, 2))):
-        _check(name, getattr(lookup, name), torch.int32, shape, dev)
-    _check_aligned("keys", lookup.keys)
+    if lookup.keys.shape[1] != W:
+        raise ValueError(f"{W}-word queries, {lookup.keys.shape[1]}-word "
+                         "keys")
+    pairs, records = lookup.pairs, lookup.records
+    for name, t, shape in (
+            ("pairs", pairs, (lookup.bits.shape[0], 2)),
+            ("seeds", lookup.seeds, (n_levels,)),
+            ("masks", lookup.masks, (n_levels,)),
+            ("word_offsets", lookup.word_offsets, (n_levels,)),
+            ("key_offsets", lookup.key_offsets, (n_levels,)),
+            ("records", records, records.shape)):
+        _check(name, t, torch.int32, shape, dev)
+    for name, t in (("queries", queries), ("pairs", pairs),
+                    ("records", records)):
+        _check_aligned(name, t)
     lib = _load()
     out = torch.empty((N, 2), dtype=torch.int32, device=dev)
+    zero = torch.empty(2, dtype=torch.int32, device=dev)
     rc = lib.pa_mphf_dynamic(
-        dev.index, N, W, n_levels, queries.data_ptr(),
+        dev.index, N, W, n_levels, queries.data_ptr(), pairs.data_ptr(),
         *(getattr(lookup, f).data_ptr() for f in (
-            "bits", "ranks", "seeds", "masks", "word_offsets", "key_offsets",
-            "keys", "values")), out.data_ptr(), _stream(dev))
+            "seeds", "masks", "word_offsets", "key_offsets")),
+        records.data_ptr(), zero.data_ptr(), out.data_ptr(), _stream(dev))
     _raise_on(lib, rc, "mphf_dynamic kernel")
     mphf_dynamic_cuda.launches += 1
     return out

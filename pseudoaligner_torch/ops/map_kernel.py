@@ -112,7 +112,9 @@ class DeviceIndex:
     cuckoo_vals: object  # cuckoo: [NB*SLOTS*2] flat (node, offset) slot
     #                      values; else a [2] dummy
     mphf_bits: object  # [bw] MPHF level bit words
-    mphf_ranks: object  # [bw] set bits of the level before each word
+    mphf_ranks: object  # [bw] set bits of the level before each word;
+    #                     uploaded, both are columns of one [bw, 2] tensor
+    #                     (mphf_pairs)
     kmer_keys: object  # [nk, W] slot-ordered k-mer words
     kmer_node: object  # [nk] slot -> node
     kmer_offset: object  # [nk] slot -> offset in the node
@@ -120,11 +122,15 @@ class DeviceIndex:
     #                  word w = transcript 32w + t), or [1, 0] when
     #                  meta.tx_words == 0
 
+    @property
+    def mphf_pairs(self) -> torch.Tensor:
+        """[bw, 2] (bit word, rank word) of each MPHF level word: the
+        tensor an upload's mphf_bits and mphf_ranks are the columns of."""
+        return paired(self.mphf_bits, self.mphf_ranks)
+
     def nbytes(self) -> int:
-        """Bytes of an uploaded index (tensors)."""
-        return sum(getattr(self, f.name).numel()
-                   * getattr(self, f.name).element_size()
-                   for f in fields(self))
+        """Bytes of an uploaded index (tensors), each storage once."""
+        return storage_nbytes(getattr(self, f.name) for f in fields(self))
 
 
 @dataclass(frozen=True)
@@ -393,6 +399,40 @@ def _as_tensor(a: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
+def storage_nbytes(tensors) -> int:
+    """Bytes of the storages under `tensors`, each counted once (views of
+    one tensor, such as the MPHF's paired words, share a storage)."""
+    seen = {}
+    for t in tensors:
+        s = t.untyped_storage()
+        seen[s.data_ptr()] = s.nbytes()
+    return sum(seen.values())
+
+
+def paired_upload(a: np.ndarray, b: np.ndarray, device):
+    """Two [n] uint32/int32 arrays -> int32 views of columns 0 and 1 of
+    one [n, 2] tensor on `device`: word i of `a` beside word i of `b`, so
+    a kernel reads both with one 8-byte load."""
+    t = _as_tensor(np.stack([np.asarray(a).view(np.int32),
+                             np.asarray(b).view(np.int32)], axis=1), device)
+    return t[:, 0], t[:, 1]
+
+
+def paired(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The [n, 2] int32 tensor whose columns `a` and `b` are (as
+    paired_upload made them); raises ValueError on two separate tensors."""
+    n = a.shape[0]
+    if n == 0 and b.shape == a.shape:
+        return a.new_empty((0, 2))
+    if (a.dim() != 1 or b.shape != a.shape or a.stride() != (2,)
+            or b.stride() != (2,) or b.data_ptr() != a.data_ptr() + 4
+            or a.untyped_storage().data_ptr()
+            != b.untyped_storage().data_ptr()):
+        raise ValueError("the MPHF's bit and rank words must be the columns "
+                         "of one [n, 2] tensor (map_kernel.paired_upload)")
+    return a.as_strided((n, 2), (2, 1))
+
+
 def packed_tensors(args: dict, device) -> dict:
     """`pack_serving_args`' arrays -> tensors on `device`: uint32 and
     uint16 as their int32 and int16 bit patterns, uint8 as is."""
@@ -414,7 +454,9 @@ def upload(dev: DeviceIndex, device, serving: MapMeta | None = None,
     index never reads travel as empty dummies, as the reference's
     `upload_device_index` does: the MPHF and the slot-ordered keys and
     values in cuckoo and bucket1 mode.  Without it every array is kept,
-    as `batch_stats` needs.
+    as `batch_stats` needs.  The MPHF's bit and rank words travel side by
+    side in one [bw, 2] tensor (`mphf_pairs`), mphf_bits and mphf_ranks
+    its columns: the same bytes as two arrays, one load per level probe.
 
     `pack` chooses the bit-packed upload of the cuckoo keys and values
     (`pack_serving_args`, unpacked on the device by `unpack_index` or, on a
@@ -445,7 +487,10 @@ def upload(dev: DeviceIndex, device, serving: MapMeta | None = None,
             raise ValueError("the index's values do not fit the packed "
                              "fields")
     out = {n: _as_tensor(a, device) for n, a in arrays.items()
-           if packed is None or n not in ("cuckoo", "cuckoo_vals")}
+           if n not in ("mphf_bits", "mphf_ranks")
+           and (packed is None or n not in ("cuckoo", "cuckoo_vals"))}
+    out["mphf_bits"], out["mphf_ranks"] = paired_upload(
+        arrays["mphf_bits"], arrays["mphf_ranks"], device)
     if packed is not None:
         args, cfg = packed
         t = packed_tensors(args, device)

@@ -32,8 +32,10 @@ Send buffers hold `cap = slack * b * P / S` queries per destination
 (rounded up to 8, at least 64).  Queries past a full buffer are dropped
 and counted (`overflow`); in the compact output their reads carry the -3
 exact re-map marker, in the full output map_batch raises.  Every buffer
-slot is probed, padding included, as the reference does: at S = 1 and
-slack 4 that is four probes per query.
+slot gets the reference's result, padding included: the plain probe
+probes each slot, as the reference does (at S = 1 and slack 4, four
+probes per query); K8 probes the all-zero query, which every padded slot
+holds, once per launch and writes its result to every all-zero slot.
 """
 
 from __future__ import annotations
@@ -59,6 +61,9 @@ from ..ops.map_kernel import (
     lens_link_dtype,
     next_hit_table,
     pack_reads,
+    paired,
+    paired_upload,
+    storage_nbytes,
     unpack_reads,
     upload,
     walk_from_seeds,
@@ -73,7 +78,10 @@ OWNER_SEED = 0xA5A5_5A5A
 class ShardedLookup(NamedTuple):
     """Per-shard sub-index arrays.  From build_sharded_lookup: numpy,
     stacked, axis 0 the shard; from upload_lookup: one shard's int32
-    tensors (uint32 as bit patterns), without that axis."""
+    tensors (uint32 as bit patterns), without that axis, in K8's layouts:
+    bits and ranks are the columns of one [max_bits_words, 2] tensor
+    (`pairs`), keys and values column ranges of one [max_keys, RW] record
+    tensor (`records`)."""
 
     bits: object  # [S, max_bits_words] uint32
     ranks: object  # [S, max_bits_words] uint32
@@ -83,6 +91,39 @@ class ShardedLookup(NamedTuple):
     key_offsets: object  # [S, n_levels] int32
     keys: object  # [S, max_keys, W] uint32
     values: object  # [S, max_keys, 2] int32 (node, offset)
+
+    @property
+    def pairs(self) -> torch.Tensor:
+        """An uploaded shard's [max_bits_words, 2] (bit word, rank word)
+        tensor."""
+        return paired(self.bits, self.ranks)
+
+    @property
+    def records(self) -> torch.Tensor:
+        """An uploaded shard's [max_keys, RW] records: W key words, node,
+        offset, zero padding (record_words); raises ValueError when keys
+        and values are separate tensors."""
+        K, W = self.keys.shape
+        rw = record_words(W)
+        k, v = self.keys, self.values
+        if (k.stride() != (rw, 1) or v.shape != (K, 2)
+                or v.stride() != (rw, 1)
+                or v.data_ptr() != k.data_ptr() + 4 * W
+                or k.untyped_storage().data_ptr()
+                != v.untyped_storage().data_ptr()):
+            raise ValueError("keys and values must be column ranges of one "
+                             "record tensor (upload_lookup)")
+        return k.as_strided((K, rw), (rw, 1))
+
+    def nbytes(self) -> int:
+        """Bytes of an uploaded shard, each storage once."""
+        return storage_nbytes(self)
+
+
+def record_words(W: int) -> int:
+    """Words of a K8 record of W key words, node and offset: 4 (16 bytes)
+    for W <= 2, else 8, so a record never straddles a 32-byte sector."""
+    return 4 if W + 2 <= 4 else 8
 
 
 @dataclass(frozen=True)
@@ -219,8 +260,23 @@ def build_sharded_lookup(image: IndexImage, n_shards: int):
 
 def upload_lookup(lookup: ShardedLookup, shard: int, device) -> ShardedLookup:
     """Shard `shard`'s arrays of a numpy ShardedLookup as int32 tensors on
-    `device`."""
-    return ShardedLookup(*(_as_tensor(a[shard], device) for a in lookup))
+    `device`, in the layouts K8 reads with one load each: the bit and rank
+    words side by side (`pairs`), and each slot's key words, node and
+    offset in one record (`records`, built on the device).  At W = 2 both
+    take the bytes of the separate arrays; at W = 1, 3 and 4 a record's
+    padding adds 4, 12 and 8 bytes per key."""
+    (bits, ranks, seeds, masks, word_offsets, key_offsets, keys,
+     values) = (a[shard] for a in lookup)
+    K, W = keys.shape
+    records = torch.zeros((K, record_words(W)), dtype=torch.int32,
+                          device=device)
+    records[:, :W] = _as_tensor(keys, device)
+    records[:, W:W + 2] = _as_tensor(values, device)
+    return ShardedLookup(
+        *paired_upload(bits, ranks, device),
+        *(_as_tensor(a, device)
+          for a in (seeds, masks, word_offsets, key_offsets)),
+        records[:, :W], records[:, W:W + 2])
 
 
 def route_queries(packed: torch.Tensor, lens: torch.Tensor, k: int,

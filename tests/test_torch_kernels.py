@@ -475,6 +475,47 @@ def test_multi_device_kernels_match_plain_on_cuda(S, cap_scale):
     torch.cuda.synchronize()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("polya", [True, False],
+                         ids=["polyA-key", "no-polyA"])
+def test_mphf_dynamic_zero_queries_match_plain_on_cuda(polya):
+    """K8 on zero-heavy send buffers (three slots in four all-zero, as at
+    S = 1, and all-zero queries among the real ones): its one probe of the
+    zero key gives every zero slot the plain probe's answer, where poly-A
+    is a key and where it is not, at every key width (k = 15, 20, 40, 64:
+    W = 1-4, 16- and 32-byte records)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pseudoaligner_torch.ops.mphf_lookup import dynamic_verified_lookup
+    from pseudoaligner_torch.parallel import sharded_index as si
+
+    rng = np.random.default_rng(11 + polya)
+    seqs = [rng.integers(0, 4, int(rng.integers(200, 500))).astype(np.uint8)
+            for _ in range(12)]
+    if polya:
+        seqs.append(np.zeros(160, np.uint8))  # poly-A: the all-zero k-mer
+    names = [f"t{i}" for i in range(len(seqs))]
+    gmap = {n: "g" for n in names}
+    for k in (15, 20, 40, 64):
+        image = build_index(seqs, names, gmap, k=k)
+        assert np.all(image.kmer_keys == 0, axis=1).any() == polya
+        lookup, n_levels = si.build_sharded_lookup(image, 1)
+        shard = si.upload_lookup(lookup, 0, "cuda")
+        keys = image.kmer_keys
+        n = len(keys)
+        q = np.zeros((4 * n + 37, keys.shape[1]), np.uint32)
+        q[:n] = keys[rng.permutation(n)]
+        q[rng.integers(0, n, 9)] = 0
+        q[n:n + 300:3] = rng.integers(0, 2**31, (100, keys.shape[1]))
+        qt = torch.from_numpy(q.view(np.int32)).to("cuda")
+        got = kernels.mphf_dynamic_cuda(qt, shard, n_levels)
+        want = dynamic_verified_lookup(qt, shard, n_levels)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), k
+        pad = got[n + 300:]
+        assert ((pad[:, 0] >= 0).all() if polya else (pad == -1).all()), k
+
+
 def _graph_case(S, shape, device):
     """A graph-sharded KmerPartitionedAligner over S loopback shards on
     `device` and a batch of the _data reads (a multiple of S rows) ->
