@@ -56,9 +56,7 @@ struct Dyn {
 // Words of a record of W key words, node and offset (sharded_index.py
 // record_words).
 template <int W>
-constexpr int record_words() {
-  return W + 2 <= 4 ? 4 : 8;
-}
+constexpr int RECORD_WORDS = W + 2 <= 4 ? 4 : 8;
 
 // The shard's level table into shared memory (all threads of the block;
 // the caller synchronises).
@@ -76,7 +74,7 @@ __device__ __forceinline__ void load_levels(const Dyn& a, pa::Levels& lv) {
 template <int W, int AHEAD>
 __device__ __forceinline__ int2 lookup(const Dyn& a, const pa::Levels& lv,
                                        const uint32_t (&w)[W]) {
-  constexpr int RW = record_words<W>();
+  constexpr int RW = RECORD_WORDS<W>;
   const int slot = pa::mphf_slot<W, AHEAD>(a.n_levels, lv, a.pairs, w);
   int2 r = make_int2(-1, -1);
   if (slot >= 0) {
