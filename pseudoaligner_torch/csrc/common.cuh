@@ -36,6 +36,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cstdio>
 #include <type_traits>
 #include <cuda_runtime.h>
 
@@ -149,6 +150,38 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// TRIAL: a launch attribute that keeps [base, base + bytes) persisting in
+// L2 for one launch; the device's persisting set-aside is raised to the
+// window (up to its maximum) the first time and left there.
+inline cudaError_t l2_window(const void* base, size_t bytes,
+                             cudaLaunchAttribute* at) {
+  int dev = 0, max_win = 0, max_persist = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&max_win, cudaDevAttrMaxAccessPolicyWindowSize, dev);
+  cudaDeviceGetAttribute(&max_persist, cudaDevAttrMaxPersistingL2CacheSize,
+                         dev);
+  size_t limit = 0;
+  cudaDeviceGetLimit(&limit, cudaLimitPersistingL2CacheSize);
+  const size_t win = bytes < (size_t)max_win ? bytes : (size_t)max_win;
+  const size_t want = win < (size_t)max_persist ? win : (size_t)max_persist;
+  if (limit < want) {
+    e = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, want);
+    if (e != cudaSuccess) return e;
+    limit = want;
+    fprintf(stderr, "l2_window: max window %d, max persisting %d, set-aside "
+            "%zu, window %zu\n", max_win, max_persist, limit, win);
+  }
+  at->id = cudaLaunchAttributeAccessPolicyWindow;
+  at->val.accessPolicyWindow.base_ptr = const_cast<void*>(base);
+  at->val.accessPolicyWindow.num_bytes = win;
+  at->val.accessPolicyWindow.hitRatio =
+      win == 0 ? 0.f : limit >= win ? 1.f : (float)limit / (float)win;
+  at->val.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
+  at->val.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
+  return cudaSuccess;
 }
 
 // f(std::integral_constant<int, W>()) for the key width W = 1..4, so a

@@ -100,20 +100,39 @@ __global__ void zero_key_kernel(Dyn a, int2* __restrict__ zero) {
   }
 }
 
+// TRIAL zero modes: 0 probe every slot, 1 the pre-pass's answer, 2 a probe
+// of the zero key by thread 0 of each block that holds zero queries
 template <int W, int AHEAD>
 __global__ void mphf_dynamic_kernel(Dyn a, const int2* __restrict__ zero,
-                                    int skip_zero, int2* __restrict__ out) {
+                                    int mode, int2* __restrict__ out) {
   __shared__ pa::Levels lv;
+  __shared__ int2 zres;
   load_levels(a, lv);
   __syncthreads();
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= a.n) return;
+  const bool in = t < a.n;
   uint32_t w[W];
-  pa::load_words<W>(a.queries + t * W, w);
+#pragma unroll
+  for (int j = 0; j < W; j++) w[j] = 0;
+  if (in) pa::load_words<W>(a.queries + t * W, w);
   uint32_t any = 0;
 #pragma unroll
   for (int j = 0; j < W; j++) any |= w[j];
-  out[t] = (any == 0 && skip_zero) ? __ldg(zero) : lookup<W, AHEAD>(a, lv, w);
+  if (mode == 2) {
+    const bool z = in && any == 0;
+    if (__syncthreads_or(z)) {
+      if (threadIdx.x == 0) {
+        const uint32_t zw[W] = {};
+        zres = lookup<W, AHEAD>(a, lv, zw);
+      }
+      if (in && !z) out[t] = lookup<W, AHEAD>(a, lv, w);
+      __syncthreads();
+      if (z) out[t] = zres;
+      return;
+    }
+  }
+  if (!in) return;
+  out[t] = (any == 0 && mode == 1) ? __ldg(zero) : lookup<W, AHEAD>(a, lv, w);
 }
 
 }  // namespace
@@ -137,20 +156,36 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   cudaStream_t st = (cudaStream_t)stream;
   // TRIAL knobs (read per launch)
   const char* ev = getenv("PA_TRIAL_K8_ZERO");
-  const int skip = ev ? atoi(ev) : 1;
+  const int mode = ev ? atoi(ev) : 1;
   ev = getenv("PA_TRIAL_K8_AHEAD");
   const int ahead = ev ? atoi(ev) : 1;
+  ev = getenv("PA_TRIAL_K8_L2");
+  const size_t l2 = ev ? (size_t)atoll(ev) : 0;
+  cudaLaunchAttribute attr[1] = {};
+  if (l2) {
+    e = pa::l2_window(pairs, l2, attr);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = l2 ? 1 : 0;
   int2* z = reinterpret_cast<int2*>(zero);
   int2* o = reinterpret_cast<int2*>(out);
   return (int)pa::with_w(W, [&](auto w) {
     constexpr int WW = decltype(w)::value;
+    cudaError_t er;
     if (ahead == 2) {
-      if (skip) zero_key_kernel<WW, 2><<<1, 64, 0, st>>>(a, z);
-      mphf_dynamic_kernel<WW, 2><<<blocks, threads, 0, st>>>(a, z, skip, o);
+      if (mode == 1) zero_key_kernel<WW, 2><<<1, 64, 0, st>>>(a, z);
+      er = cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 2>, a,
+                              (const int2*)z, mode, o);
     } else {
-      if (skip) zero_key_kernel<WW, 1><<<1, 64, 0, st>>>(a, z);
-      mphf_dynamic_kernel<WW, 1><<<blocks, threads, 0, st>>>(a, z, skip, o);
+      if (mode == 1) zero_key_kernel<WW, 1><<<1, 64, 0, st>>>(a, z);
+      er = cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 1>, a,
+                              (const int2*)z, mode, o);
     }
-    return cudaGetLastError();
+    return er != cudaSuccess ? er : cudaGetLastError();
   });
 }

@@ -106,24 +106,8 @@ extern "C" int pa_stats(const int64_t* params, const int64_t* index,
   const size_t l2 = ev ? (size_t)atoll(ev) : 0;
   cudaLaunchAttribute attr[1] = {};
   if (l2) {
-    int dev = 0, max_win = 0, max_persist = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&max_win, cudaDevAttrMaxAccessPolicyWindowSize,
-                           dev);
-    cudaDeviceGetAttribute(&max_persist, cudaDevAttrMaxPersistingL2CacheSize,
-                           dev);
-    const size_t win = l2 < (size_t)max_win ? l2 : (size_t)max_win;
-    const size_t keep =
-        win < (size_t)max_persist ? win : (size_t)max_persist;
-    e = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, keep);
+    e = pa::l2_window(ix.pairs, l2, attr);
     if (e != cudaSuccess) return (int)e;
-    attr[0].id = cudaLaunchAttributeAccessPolicyWindow;
-    attr[0].val.accessPolicyWindow.base_ptr = (void*)ix.pairs;
-    attr[0].val.accessPolicyWindow.num_bytes = win;
-    attr[0].val.accessPolicyWindow.hitRatio =
-        win ? (float)keep / (float)win : 0.f;
-    attr[0].val.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
-    attr[0].val.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);

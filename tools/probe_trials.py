@@ -118,7 +118,6 @@ def main() -> int:
             raise AssertionError(f"stats {label}: {got.tolist()}")
 
     k3 = [("ahead1", {"PA_TRIAL_STATS_AHEAD": "1", "PA_TRIAL_STATS_L2": "0"}),
-          ("ahead2", {"PA_TRIAL_STATS_AHEAD": "2", "PA_TRIAL_STATS_L2": "0"}),
           ("ahead1+l2", {"PA_TRIAL_STATS_AHEAD": "1",
                          "PA_TRIAL_STATS_L2": l2}),
           ("ahead2+l2", {"PA_TRIAL_STATS_AHEAD": "2",
@@ -158,10 +157,20 @@ def main() -> int:
         calls[0] += 1
         return kernels.mphf_dynamic_cuda(qs[calls[0] % 4], shard, n_levels)
 
-    k8v = [(f"zero{z}_ahead{a}", {"PA_TRIAL_K8_ZERO": str(z),
-                                  "PA_TRIAL_K8_AHEAD": str(a)})
-           for z in (0, 1) for a in (1, 2)]
-    turns("mphf_dynamic", k8v, k8, check_k8, [4, 16])
+    l2 = str(shard.pairs.numel() * 4)
+    k8v = [(f"zero{z}{'+l2' if w else ''}", {
+        "PA_TRIAL_K8_ZERO": str(z), "PA_TRIAL_K8_AHEAD": "1",
+        "PA_TRIAL_K8_L2": l2 if w else "0"}) for w in (0, 1)
+        for z in (0, 1, 2)]
+    turns("mphf_dynamic", k8v, k8, check_k8, [16])
+    # the same kernel on chip_smoke --batches 4's first 4 batches: exact,
+    # one-SNP and reversed reads (its 16-batch run's first 4 are exact)
+    mix = cs.recipe_reads(seqs, 4 * cs.BATCH, cs.READ_LEN, 3)
+    qs[:] = [kernels.route_cuda(torch.from_numpy(pack_reads_host(
+        mix[b * cs.BATCH:(b + 1) * cs.BATCH]).view(np.int32)).to(dev), lens,
+        20, cs.READ_LEN, 1, cap)[0].reshape(cap, -1) for b in range(4)]
+    plain[:] = [dynamic_verified_lookup(q, shard, n_levels) for q in qs]
+    turns("mphf_dynamic[4-batch reads]", k8v[:3], k8, check_k8, [4, 16])
     cs.say(json.dumps(out))
     return 0
 
