@@ -398,35 +398,20 @@ __device__ __forceinline__ void bucket1_probe(const Params& p,
 // level whose bit is set gives the slot key_off + rank + popcount(bits
 // below), in 32-bit arithmetic as the reference's int32.  -1 when no
 // level's bit is set.  An alien k-mer can land on a set bit: the caller
-// verifies the stored key.  The pairs of the first AHEAD levels are loaded
-// together before any is tested (one round trip where the chain would take
-// AHEAD); the levels after them one at a time.
-template <int W, int AHEAD = 1>
+// verifies the stored key.  The levels are read one after another: loading
+// two levels' pairs at once costs more of the random-access rate that
+// bounds the probers than the round trip it saves (PERF.md, PR 7).
+template <int W>
 __device__ __forceinline__ int mphf_slot(int n_levels, const Levels& lv,
                                          const uint2* pairs,
                                          const uint32_t (&w)[W]) {
-  uint32_t bp[AHEAD];
-  uint2 pr[AHEAD];
-#pragma unroll
-  for (int l = 0; l < AHEAD; l++) {
-    const uint32_t h = hash_words<W>(w, lv.seed[l]) & lv.mask[l];
-    bp[l] = h & 31u;
-    pr[l] = l < n_levels ? __ldg(pairs + lv.word_off[l] + (h >> 5))
-                         : make_uint2(0u, 0u);
-  }
-#pragma unroll
-  for (int l = 0; l < AHEAD; l++) {
-    if ((pr[l].x >> bp[l]) & 1u)
-      return (int)(lv.key_off[l] + pr[l].y +
-                   (uint32_t)__popc(pr[l].x & ((1u << bp[l]) - 1u)));
-  }
-  for (int l = AHEAD; l < n_levels; l++) {
+  for (int l = 0; l < n_levels; l++) {
     const uint32_t h = hash_words<W>(w, lv.seed[l]) & lv.mask[l];
     const uint2 p = __ldg(pairs + lv.word_off[l] + (h >> 5));
-    const uint32_t b = h & 31u;
-    if ((p.x >> b) & 1u)
+    const uint32_t bp = h & 31u;
+    if ((p.x >> bp) & 1u)
       return (int)(lv.key_off[l] + p.y +
-                   (uint32_t)__popc(p.x & ((1u << b) - 1u)));
+                   (uint32_t)__popc(p.x & ((1u << bp) - 1u)));
   }
   return -1;
 }

@@ -71,11 +71,11 @@ __device__ __forceinline__ void load_levels(const Dyn& a, pa::Levels& lv) {
 
 // (node, offset) of the query words w: the record at the MPHF slot when its
 // key equals w, else (-1, -1).
-template <int W, int AHEAD>
+template <int W>
 __device__ __forceinline__ int2 lookup(const Dyn& a, const pa::Levels& lv,
                                        const uint32_t (&w)[W]) {
   constexpr int RW = RECORD_WORDS<W>;
-  const int slot = pa::mphf_slot<W, AHEAD>(a.n_levels, lv, a.pairs, w);
+  const int slot = pa::mphf_slot<W>(a.n_levels, lv, a.pairs, w);
   int2 r = make_int2(-1, -1);
   if (slot >= 0) {
     uint32_t rec[RW];
@@ -89,20 +89,20 @@ __device__ __forceinline__ int2 lookup(const Dyn& a, const pa::Levels& lv,
 }
 
 // The pre-pass: the all-zero query's result into *zero.
-template <int W, int AHEAD>
+template <int W>
 __global__ void zero_key_kernel(Dyn a, int2* __restrict__ zero) {
   __shared__ pa::Levels lv;
   load_levels(a, lv);
   __syncthreads();
   if (threadIdx.x == 0) {
     const uint32_t w[W] = {};
-    *zero = lookup<W, AHEAD>(a, lv, w);
+    *zero = lookup<W>(a, lv, w);
   }
 }
 
 // TRIAL zero modes: 0 probe every slot, 1 the pre-pass's answer, 2 a probe
 // of the zero key by thread 0 of each block that holds zero queries
-template <int W, int AHEAD>
+template <int W>
 __global__ void mphf_dynamic_kernel(Dyn a, const int2* __restrict__ zero,
                                     int mode, int2* __restrict__ out) {
   __shared__ pa::Levels lv;
@@ -123,16 +123,16 @@ __global__ void mphf_dynamic_kernel(Dyn a, const int2* __restrict__ zero,
     if (__syncthreads_or(z)) {
       if (threadIdx.x == 0) {
         const uint32_t zw[W] = {};
-        zres = lookup<W, AHEAD>(a, lv, zw);
+        zres = lookup<W>(a, lv, zw);
       }
-      if (in && !z) out[t] = lookup<W, AHEAD>(a, lv, w);
+      if (in && !z) out[t] = lookup<W>(a, lv, w);
       __syncthreads();
       if (z) out[t] = zres;
       return;
     }
   }
   if (!in) return;
-  out[t] = (any == 0 && mode == 1) ? __ldg(zero) : lookup<W, AHEAD>(a, lv, w);
+  out[t] = (any == 0 && mode == 1) ? __ldg(zero) : lookup<W>(a, lv, w);
 }
 
 }  // namespace
@@ -157,8 +157,6 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   // TRIAL knobs (read per launch)
   const char* ev = getenv("PA_TRIAL_K8_ZERO");
   const int mode = ev ? atoi(ev) : 1;
-  ev = getenv("PA_TRIAL_K8_AHEAD");
-  const int ahead = ev ? atoi(ev) : 1;
   ev = getenv("PA_TRIAL_K8_L2");
   const size_t l2 = ev ? (size_t)atoll(ev) : 0;
   cudaLaunchAttribute attr[1] = {};
@@ -176,16 +174,9 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   int2* o = reinterpret_cast<int2*>(out);
   return (int)pa::with_w(W, [&](auto w) {
     constexpr int WW = decltype(w)::value;
-    cudaError_t er;
-    if (ahead == 2) {
-      if (mode == 1) zero_key_kernel<WW, 2><<<1, 64, 0, st>>>(a, z);
-      er = cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 2>, a,
-                              (const int2*)z, mode, o);
-    } else {
-      if (mode == 1) zero_key_kernel<WW, 1><<<1, 64, 0, st>>>(a, z);
-      er = cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 1>, a,
-                              (const int2*)z, mode, o);
-    }
+    if (mode == 1) zero_key_kernel<WW><<<1, 64, 0, st>>>(a, z);
+    const cudaError_t er = cudaLaunchKernelEx(
+        &cfg, mphf_dynamic_kernel<WW>, a, (const int2*)z, mode, o);
     return er != cudaSuccess ? er : cudaGetLastError();
   });
 }

@@ -28,7 +28,7 @@ namespace {
 
 constexpr int THREADS = 256;
 
-template <int W, int AHEAD>
+template <int W>
 __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
                              const uint32_t* __restrict__ packed,
                              const int32_t* __restrict__ lens, pa::Index ix,
@@ -43,7 +43,7 @@ __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv
       uint32_t w[W];
       pa::kmer_words<W>(pa::window_words(packed + (size_t)b * p.nw, p.nw),
                         pos, p.k, w);
-      const int slot = pa::mphf_slot<W, AHEAD>(p.n_levels, lv, ix.pairs, w);
+      const int slot = pa::mphf_slot<W>(p.n_levels, lv, ix.pairs, w);
       if (slot >= 0) {
         if (pa::key_at_slot_equals<W>(ix.keys, slot, w))
           hit = 1;
@@ -97,12 +97,9 @@ extern "C" int pa_stats(const int64_t* params, const int64_t* index,
   const int64_t n = (int64_t)p.B * p.P;
   const int blocks = (int)((n + THREADS - 1) / THREADS);
   cudaStream_t st = (cudaStream_t)stream;
-  // TRIAL knobs (read per launch): levels loaded together, and the bytes
-  // of the pair array to keep persisting in L2 (0: no window), a launch
-  // attribute of this launch alone
-  const char* ev = getenv("PA_TRIAL_STATS_AHEAD");
-  const int ahead = ev ? atoi(ev) : 2;
-  ev = getenv("PA_TRIAL_STATS_L2");
+  // TRIAL knob (read per launch): the bytes of the pair array to keep
+  // persisting in L2 (0: no window), a launch attribute of this launch alone
+  const char* ev = getenv("PA_TRIAL_STATS_L2");
   const size_t l2 = ev ? (size_t)atoll(ev) : 0;
   cudaLaunchAttribute attr[1] = {};
   if (l2) {
@@ -116,13 +113,9 @@ extern "C" int pa_stats(const int64_t* params, const int64_t* index,
   cfg.attrs = attr;
   cfg.numAttrs = l2 ? 1 : 0;
   cudaError_t r = pa::with_w(p.W, [&](auto w) {
-    constexpr int WW = decltype(w)::value;
-    cudaError_t er =
-        ahead == 2
-            ? cudaLaunchKernelEx(&cfg, stats_kernel<WW, 2>, p, lv, packed,
-                                 lens, ix, counts)
-            : cudaLaunchKernelEx(&cfg, stats_kernel<WW, 1>, p, lv, packed,
-                                 lens, ix, counts);
+    const cudaError_t er = cudaLaunchKernelEx(
+        &cfg, stats_kernel<decltype(w)::value>, p, lv, packed, lens, ix,
+        counts);
     return er != cudaSuccess ? er : cudaGetLastError();
   });
   return (int)r;

@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """Time the MPHF probers' design variants on one NVIDIA GPU, each against
 the others in turns on the same inputs and card: K3 (csrc/stats.cu) with
-the pairs of levels 0 and 1 loaded together or one level at a time, with
 and without an L2 persisting window over the pair array; K8
-(csrc/mphfdyn.cu) with and without the zero-key fast path, one or two
-levels ahead.  The variants are chosen per launch by the PA_TRIAL_*
+(csrc/mphfdyn.cu) probing every slot, taking the zero key's answer from a
+pre-pass or from a per-block probe, each with and without the window.  The variants are chosen per launch by the PA_TRIAL_*
 environment variables the C entry points read.
 
     python3 tools/probe_trials.py [--novel-bases 27000000] [--rounds 2]
@@ -117,18 +116,10 @@ def main() -> int:
         if got.tolist() != want.tolist():
             raise AssertionError(f"stats {label}: {got.tolist()}")
 
-    k3 = [("ahead1", {"PA_TRIAL_STATS_AHEAD": "1", "PA_TRIAL_STATS_L2": "0"}),
-          ("ahead1+l2", {"PA_TRIAL_STATS_AHEAD": "1",
-                         "PA_TRIAL_STATS_L2": l2}),
-          ("ahead2+l2", {"PA_TRIAL_STATS_AHEAD": "2",
-                         "PA_TRIAL_STATS_L2": l2})]
-    try:
-        turns("stats", k3, lambda: kernels.stats_cuda(
-            meta, idx, packed[last], lens), check_stats, [16])
-    except RuntimeError as e:  # the L2 window refused
-        cs.say(f"[stats] L2 window refused: {e}")
-        turns("stats", k3[:2], lambda: kernels.stats_cuda(
-            meta, idx, packed[last], lens), check_stats, [16])
+    k3 = [("pairs", {"PA_TRIAL_STATS_L2": "0"}),
+          ("pairs+l2", {"PA_TRIAL_STATS_L2": l2})]
+    turns("stats", k3, lambda: kernels.stats_cuda(
+        meta, idx, packed[last], lens), check_stats, [16])
     os.environ.update(k3[0][1])
     al.close()
     del al, idx
@@ -159,7 +150,7 @@ def main() -> int:
 
     l2 = str(shard.pairs.numel() * 4)
     k8v = [(f"zero{z}{'+l2' if w else ''}", {
-        "PA_TRIAL_K8_ZERO": str(z), "PA_TRIAL_K8_AHEAD": "1",
+        "PA_TRIAL_K8_ZERO": str(z),
         "PA_TRIAL_K8_L2": l2 if w else "0"}) for w in (0, 1)
         for z in (0, 1, 2)]
     turns("mphf_dynamic", k8v, k8, check_k8, [16])
