@@ -104,12 +104,16 @@ __global__ void zero_key_kernel(Dyn a, int2* __restrict__ zero) {
 // of the zero key by thread 0 of each block that holds zero queries
 template <int W>
 __global__ void mphf_dynamic_kernel(Dyn a, const int2* __restrict__ zero,
-                                    int mode, int2* __restrict__ out) {
+                                    int mode, int64_t stride,
+                                    int2* __restrict__ out) {
   __shared__ pa::Levels lv;
   __shared__ int2 zres;
   load_levels(a, lv);
   __syncthreads();
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  // TRIAL: block b takes tile b * stride mod gridDim (stride coprime to
+  // it): neighbouring blocks take tiles a quarter of the buffer apart
+  const int64_t tile = (int64_t)blockIdx.x * stride % gridDim.x;
+  const int64_t t = tile * blockDim.x + threadIdx.x;
   const bool in = t < a.n;
   uint32_t w[W];
 #pragma unroll
@@ -157,6 +161,16 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   // TRIAL knobs (read per launch)
   const char* ev = getenv("PA_TRIAL_K8_ZERO");
   const int mode = ev ? atoi(ev) : 1;
+  ev = getenv("PA_TRIAL_K8_ORDER");
+  int64_t stride = 1;
+  if (ev && atoi(ev) && blocks > 4) {
+    stride = blocks / 4 + 1;
+    auto gcd = [](int64_t x, int64_t y) {
+      while (y) { const int64_t r = x % y; x = y; y = r; }
+      return x;
+    };
+    while (gcd(stride, blocks) != 1) stride++;
+  }
   ev = getenv("PA_TRIAL_K8_L2");
   const size_t l2 = ev ? (size_t)atoll(ev) : 0;
   cudaLaunchAttribute attr[1] = {};
@@ -176,7 +190,7 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
     constexpr int WW = decltype(w)::value;
     if (mode == 1) zero_key_kernel<WW><<<1, 64, 0, st>>>(a, z);
     const cudaError_t er = cudaLaunchKernelEx(
-        &cfg, mphf_dynamic_kernel<WW>, a, (const int2*)z, mode, o);
+        &cfg, mphf_dynamic_kernel<WW>, a, (const int2*)z, mode, stride, o);
     return er != cudaSuccess ? er : cudaGetLastError();
   });
 }

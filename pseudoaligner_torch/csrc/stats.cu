@@ -26,9 +26,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-
-template <int W>
+template <int W, int THREADS>
 __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
                              const uint32_t* __restrict__ packed,
                              const int32_t* __restrict__ lens, pa::Index ix,
@@ -95,12 +93,14 @@ extern "C" int pa_stats(const int64_t* params, const int64_t* index,
   const pa::Levels lv = pa::levels_from(params);
   const pa::Index ix = pa::index_from(index);
   const int64_t n = (int64_t)p.B * p.P;
-  const int blocks = (int)((n + THREADS - 1) / THREADS);
   cudaStream_t st = (cudaStream_t)stream;
   // TRIAL knob (read per launch): the bytes of the pair array to keep
   // persisting in L2 (0: no window), a launch attribute of this launch alone
   const char* ev = getenv("PA_TRIAL_STATS_L2");
   const size_t l2 = ev ? (size_t)atoll(ev) : 0;
+  ev = getenv("PA_TRIAL_STATS_THREADS");
+  const int threads = ev ? atoi(ev) : 256;
+  const int blocks = (int)((n + threads - 1) / threads);
   cudaLaunchAttribute attr[1] = {};
   if (l2) {
     e = pa::l2_window(ix.pairs, l2, attr);
@@ -108,14 +108,18 @@ extern "C" int pa_stats(const int64_t* params, const int64_t* index,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(THREADS);
+  cfg.blockDim = dim3(threads);
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = l2 ? 1 : 0;
   cudaError_t r = pa::with_w(p.W, [&](auto w) {
-    const cudaError_t er = cudaLaunchKernelEx(
-        &cfg, stats_kernel<decltype(w)::value>, p, lv, packed, lens, ix,
-        counts);
+    constexpr int WW = decltype(w)::value;
+    const cudaError_t er =
+        threads == 1024
+            ? cudaLaunchKernelEx(&cfg, stats_kernel<WW, 1024>, p, lv, packed,
+                                 lens, ix, counts)
+            : cudaLaunchKernelEx(&cfg, stats_kernel<WW, 256>, p, lv, packed,
+                                 lens, ix, counts);
     return er != cudaSuccess ? er : cudaGetLastError();
   });
   return (int)r;

@@ -6,7 +6,8 @@ and without an L2 persisting window over the pair array; K8
 pre-pass or from a per-block probe, each with and without the window.  The variants are chosen per launch by the PA_TRIAL_*
 environment variables the C entry points read.
 
-    python3 tools/probe_trials.py [--novel-bases 27000000] [--rounds 2]
+    python3 tools/probe_trials.py --phase k3|k8 [--window 0|1]
+        [--novel-bases 27000000] [--rounds 2]
 
 Data as chip_smoke.py makes it at its defaults (seed 0): the smoke-27M
 index through the port's `index` CLI, 16 batches of 65,536 reads of 60
@@ -35,6 +36,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--novel-bases", type=int, default=27_000_000)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--phase", choices=("k3", "k8"), required=True)
+    ap.add_argument("--window", type=int, default=0,
+                    help="1: the variants with the L2 persisting window "
+                         "(run in a process of their own: the persisting "
+                         "set-aside and lines outlive a launch)")
     args = ap.parse_args()
     cs.say(cs.card_line())
     import numpy as np
@@ -68,9 +74,11 @@ def main() -> int:
     fa, ip = os.path.join(work, "tx.fa"), os.path.join(work, "index.bin")
     t = time.time()
     seqs, names, gmap = cs.scale_seqs(args.novel_bases, 0)
-    cs.write_fasta(fa, seqs, names, gmap)
-    if cli.main(["index", "-i", ip, fa, "-n", str(os.cpu_count())]) != 0:
-        raise AssertionError("index CLI failed")
+    if not os.path.exists(ip):
+        cs.write_fasta(fa, seqs, names, gmap)
+        if cli.main(["index", "-i", ip, fa, "-n",
+                     str(os.cpu_count())]) != 0:
+            raise AssertionError("index CLI failed")
     image = cli.open_index(ip)
     n_b = 16
     reads = cs.recipe_reads(seqs, n_b * cs.BATCH, cs.READ_LEN, 3)
@@ -116,11 +124,14 @@ def main() -> int:
         if got.tolist() != want.tolist():
             raise AssertionError(f"stats {label}: {got.tolist()}")
 
-    k3 = [("pairs", {"PA_TRIAL_STATS_L2": "0"}),
-          ("pairs+l2", {"PA_TRIAL_STATS_L2": l2})]
-    turns("stats", k3, lambda: kernels.stats_cuda(
-        meta, idx, packed[last], lens), check_stats, [16])
-    os.environ.update(k3[0][1])
+    k3 = [(f"threads{th}{'+l2' if args.window else ''}", {
+        "PA_TRIAL_STATS_L2": l2 if args.window else "0",
+        "PA_TRIAL_STATS_THREADS": str(th)}) for th in (256, 1024)]
+    if args.phase == "k3":
+        turns("stats", k3, lambda: kernels.stats_cuda(
+            meta, idx, packed[last], lens), check_stats, [16])
+        cs.say(json.dumps(out))
+        return 0
     al.close()
     del al, idx
 
@@ -148,11 +159,11 @@ def main() -> int:
         calls[0] += 1
         return kernels.mphf_dynamic_cuda(qs[calls[0] % 4], shard, n_levels)
 
-    l2 = str(shard.pairs.numel() * 4)
-    k8v = [(f"zero{z}{'+l2' if w else ''}", {
-        "PA_TRIAL_K8_ZERO": str(z),
-        "PA_TRIAL_K8_L2": l2 if w else "0"}) for w in (0, 1)
-        for z in (0, 1, 2)]
+    l2 = str(shard.pairs.numel() * 4) if args.window else "0"
+    k8v = [(f"zero{z}{'+order' if o else ''}{'+l2' if args.window else ''}",
+            {"PA_TRIAL_K8_ZERO": str(z), "PA_TRIAL_K8_ORDER": str(o),
+             "PA_TRIAL_K8_L2": l2})
+           for z, o in ((0, 0), (1, 0), (2, 0), (1, 1), (2, 1))]
     turns("mphf_dynamic", k8v, k8, check_k8, [16])
     # the same kernel on chip_smoke --batches 4's first 4 batches: exact,
     # one-SNP and reversed reads (its 16-batch run's first 4 are exact)
@@ -161,7 +172,7 @@ def main() -> int:
         mix[b * cs.BATCH:(b + 1) * cs.BATCH]).view(np.int32)).to(dev), lens,
         20, cs.READ_LEN, 1, cap)[0].reshape(cap, -1) for b in range(4)]
     plain[:] = [dynamic_verified_lookup(q, shard, n_levels) for q in qs]
-    turns("mphf_dynamic[4-batch reads]", k8v[:3], k8, check_k8, [4, 16])
+    turns("mphf_dynamic[4-batch reads]", k8v, k8, check_k8, [4, 16])
     cs.say(json.dumps(out))
     return 0
 
