@@ -37,6 +37,7 @@
 
 #include <cstdint>
 #include <cstdio>
+#include <cstdlib>
 #include <type_traits>
 #include <cuda_runtime.h>
 
@@ -156,7 +157,7 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // L2 for one launch; the device's persisting set-aside is raised to the
 // window (up to its maximum) the first time and left there.
 inline cudaError_t l2_window(const void* base, size_t bytes,
-                             cudaLaunchAttribute* at) {
+                             cudaLaunchAttribute* at, size_t* old_limit) {
   int dev = 0, max_win = 0, max_persist = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -165,14 +166,13 @@ inline cudaError_t l2_window(const void* base, size_t bytes,
                          dev);
   size_t limit = 0;
   cudaDeviceGetLimit(&limit, cudaLimitPersistingL2CacheSize);
+  *old_limit = limit;
   const size_t win = bytes < (size_t)max_win ? bytes : (size_t)max_win;
   const size_t want = win < (size_t)max_persist ? win : (size_t)max_persist;
   if (limit < want) {
     e = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, want);
     if (e != cudaSuccess) return e;
     limit = want;
-    fprintf(stderr, "l2_window: max window %d, max persisting %d, set-aside "
-            "%zu, window %zu\n", max_win, max_persist, limit, win);
   }
   at->id = cudaLaunchAttributeAccessPolicyWindow;
   at->val.accessPolicyWindow.base_ptr = const_cast<void*>(base);
@@ -182,6 +182,14 @@ inline cudaError_t l2_window(const void* base, size_t bytes,
   at->val.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
   at->val.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
   return cudaSuccess;
+}
+
+// TRIAL: the set-aside back to old_limit after the launch when
+// PA_TRIAL_L2_RESTORE is 1.
+inline cudaError_t l2_restore(size_t old_limit) {
+  const char* ev = getenv("PA_TRIAL_L2_RESTORE");
+  if (!ev || atoi(ev) == 0) return cudaSuccess;
+  return cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, old_limit);
 }
 
 // f(std::integral_constant<int, W>()) for the key width W = 1..4, so a

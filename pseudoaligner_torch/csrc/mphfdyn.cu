@@ -174,8 +174,9 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   ev = getenv("PA_TRIAL_K8_L2");
   const size_t l2 = ev ? (size_t)atoll(ev) : 0;
   cudaLaunchAttribute attr[1] = {};
+  size_t old_limit = 0;
   if (l2) {
-    e = pa::l2_window(pairs, l2, attr);
+    e = pa::l2_window(pairs, l2, attr, &old_limit);
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchConfig_t cfg = {};
@@ -186,11 +187,13 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   cfg.numAttrs = l2 ? 1 : 0;
   int2* z = reinterpret_cast<int2*>(zero);
   int2* o = reinterpret_cast<int2*>(out);
-  return (int)pa::with_w(W, [&](auto w) {
+  cudaError_t r = pa::with_w(W, [&](auto w) {
     constexpr int WW = decltype(w)::value;
     if (mode == 1) zero_key_kernel<WW><<<1, 64, 0, st>>>(a, z);
     const cudaError_t er = cudaLaunchKernelEx(
         &cfg, mphf_dynamic_kernel<WW>, a, (const int2*)z, mode, stride, o);
     return er != cudaSuccess ? er : cudaGetLastError();
   });
+  if (l2 && r == cudaSuccess) r = pa::l2_restore(old_limit);
+  return (int)r;
 }

@@ -102,8 +102,9 @@ extern "C" int pa_stats(const int64_t* params, const int64_t* index,
   const int threads = ev ? atoi(ev) : 256;
   const int blocks = (int)((n + threads - 1) / threads);
   cudaLaunchAttribute attr[1] = {};
+  size_t old_limit = 0;
   if (l2) {
-    e = pa::l2_window(ix.pairs, l2, attr);
+    e = pa::l2_window(ix.pairs, l2, attr, &old_limit);
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchConfig_t cfg = {};
@@ -122,5 +123,6 @@ extern "C" int pa_stats(const int64_t* params, const int64_t* index,
                                  lens, ix, counts);
     return er != cudaSuccess ? er : cudaGetLastError();
   });
+  if (l2 && r == cudaSuccess) r = pa::l2_restore(old_limit);
   return (int)r;
 }

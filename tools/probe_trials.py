@@ -41,7 +41,15 @@ def main() -> int:
                     help="1: the variants with the L2 persisting window "
                          "(run in a process of their own: the persisting "
                          "set-aside and lines outlive a launch)")
+    ap.add_argument("--restore", type=int, default=0,
+                    help="1: the persisting set-aside back to its old size "
+                         "after each windowed launch")
+    ap.add_argument("--only", default="",
+                    help="comma-separated variant labels to run (default "
+                         "all)")
     args = ap.parse_args()
+    os.environ["PA_TRIAL_L2_RESTORE"] = str(args.restore)
+    only = set(filter(None, args.only.split(",")))
     cs.say(cs.card_line())
     import numpy as np
     import torch
@@ -95,6 +103,7 @@ def main() -> int:
         """Each variant (label, env) timed by held events, in turns
         (forward then backward order, args.rounds times), after its output
         was checked against the plain version."""
+        variants = [v for v in variants if not only or v[0] in only]
         for label, env in variants:
             os.environ.update(env)
             check(label)
