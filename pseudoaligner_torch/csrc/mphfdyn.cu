@@ -101,15 +101,15 @@ __global__ void zero_key_kernel(Dyn a, int2* __restrict__ zero) {
 }
 
 // TRIAL zero modes: 0 probe every slot, 1 the pre-pass's answer, 2 a probe
-// of the zero key by thread 0 of each block that holds zero queries
+// of the zero key by thread 0 of each block that holds zero queries, 3 the
+// pre-pass's answer, and a block of zero queries alone skips the level
+// table
 template <int W>
 __global__ void mphf_dynamic_kernel(Dyn a, const int2* __restrict__ zero,
                                     int mode, int64_t stride,
                                     int2* __restrict__ out) {
   __shared__ pa::Levels lv;
   __shared__ int2 zres;
-  load_levels(a, lv);
-  __syncthreads();
   // TRIAL: block b takes tile b * stride mod gridDim (stride coprime to
   // it): neighbouring blocks take tiles a quarter of the buffer apart
   const int64_t tile = (int64_t)blockIdx.x * stride % gridDim.x;
@@ -122,6 +122,19 @@ __global__ void mphf_dynamic_kernel(Dyn a, const int2* __restrict__ zero,
   uint32_t any = 0;
 #pragma unroll
   for (int j = 0; j < W; j++) any |= w[j];
+  if (mode == 3) {
+    const bool real = in && any != 0;
+    if (!__syncthreads_or(real)) {
+      if (in) out[t] = __ldg(zero);
+      return;
+    }
+    load_levels(a, lv);
+    __syncthreads();
+    if (in) out[t] = real ? lookup<W>(a, lv, w) : __ldg(zero);
+    return;
+  }
+  load_levels(a, lv);
+  __syncthreads();
   if (mode == 2) {
     const bool z = in && any == 0;
     if (__syncthreads_or(z)) {
@@ -155,7 +168,8 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   if (n == 0) return 0;
   Dyn a = {n, n_levels, queries, pairs, seeds, masks, word_offsets,
            key_offsets, records};
-  const int threads = 256;
+  const char* tev = getenv("PA_TRIAL_K8_THREADS");
+  const int threads = tev ? atoi(tev) : 256;
   const int blocks = (int)((n + threads - 1) / threads);
   cudaStream_t st = (cudaStream_t)stream;
   // TRIAL knobs (read per launch)
@@ -189,7 +203,7 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   int2* o = reinterpret_cast<int2*>(out);
   cudaError_t r = pa::with_w(W, [&](auto w) {
     constexpr int WW = decltype(w)::value;
-    if (mode == 1) zero_key_kernel<WW><<<1, 64, 0, st>>>(a, z);
+    if (mode == 1 || mode == 3) zero_key_kernel<WW><<<1, 64, 0, st>>>(a, z);
     const cudaError_t er = cudaLaunchKernelEx(
         &cfg, mphf_dynamic_kernel<WW>, a, (const int2*)z, mode, stride, o);
     return er != cudaSuccess ? er : cudaGetLastError();

@@ -169,10 +169,13 @@ def main() -> int:
         return kernels.mphf_dynamic_cuda(qs[calls[0] % 4], shard, n_levels)
 
     l2 = str(shard.pairs.numel() * 4) if args.window else "0"
-    k8v = [(f"zero{z}{'+order' if o else ''}{'+l2' if args.window else ''}",
+    k8v = [(f"zero{z}{'+order' if o else ''}{'+l2' if args.window else ''}"
+             f"{'' if th == 256 else f'+t{th}'}",
             {"PA_TRIAL_K8_ZERO": str(z), "PA_TRIAL_K8_ORDER": str(o),
-             "PA_TRIAL_K8_L2": l2})
-           for z, o in ((0, 0), (1, 0), (2, 0), (1, 1), (2, 1))]
+             "PA_TRIAL_K8_L2": l2, "PA_TRIAL_K8_THREADS": str(th)})
+           for z, o, th in ((0, 0, 256), (1, 0, 256), (2, 0, 256),
+                            (1, 1, 256), (2, 1, 256), (3, 1, 256),
+                            (3, 1, 512), (3, 1, 1024), (2, 1, 512))]
     turns("mphf_dynamic", k8v, k8, check_k8, [16])
     # the same kernel on chip_smoke --batches 4's first 4 batches: exact,
     # one-SNP and reversed reads (its 16-batch run's first 4 are exact)
