@@ -106,7 +106,7 @@ __global__ void zero_key_kernel(Dyn a, int2* __restrict__ zero) {
 // table
 template <int W>
 __global__ void mphf_dynamic_kernel(Dyn a, const int2* __restrict__ zero,
-                                    int mode, int64_t stride,
+                                    int mode, int64_t stride, int hint,
                                     int2* __restrict__ out) {
   __shared__ pa::Levels lv;
   __shared__ int2 zres;
@@ -118,7 +118,15 @@ __global__ void mphf_dynamic_kernel(Dyn a, const int2* __restrict__ zero,
   uint32_t w[W];
 #pragma unroll
   for (int j = 0; j < W; j++) w[j] = 0;
-  if (in) pa::load_words<W>(a.queries + t * W, w);
+  if (in) {
+    if (hint && W == 2) {
+      const uint2 q = __ldcs(reinterpret_cast<const uint2*>(a.queries) + t);
+      w[0] = q.x;
+      w[W - 1] = q.y;
+    } else {
+      pa::load_words<W>(a.queries + t * W, w);
+    }
+  }
   uint32_t any = 0;
 #pragma unroll
   for (int j = 0; j < W; j++) any |= w[j];
@@ -142,9 +150,16 @@ __global__ void mphf_dynamic_kernel(Dyn a, const int2* __restrict__ zero,
         const uint32_t zw[W] = {};
         zres = lookup<W>(a, lv, zw);
       }
-      if (in && !z) out[t] = lookup<W>(a, lv, w);
+      int2 r = make_int2(0, 0);
+      if (in && !z) r = lookup<W>(a, lv, w);
       __syncthreads();
-      if (z) out[t] = zres;
+      if (z) r = zres;
+      if (in) {
+        if (hint)
+          __stcs(out + t, r);
+        else
+          out[t] = r;
+      }
       return;
     }
   }
@@ -175,6 +190,8 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   // TRIAL knobs (read per launch)
   const char* ev = getenv("PA_TRIAL_K8_ZERO");
   const int mode = ev ? atoi(ev) : 1;
+  ev = getenv("PA_TRIAL_K8_HINT");
+  const int hint = ev ? atoi(ev) : 0;
   ev = getenv("PA_TRIAL_K8_ORDER");
   int64_t stride = 1;
   if (ev && atoi(ev) && blocks > 4) {
@@ -205,7 +222,8 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
     constexpr int WW = decltype(w)::value;
     if (mode == 1 || mode == 3) zero_key_kernel<WW><<<1, 64, 0, st>>>(a, z);
     const cudaError_t er = cudaLaunchKernelEx(
-        &cfg, mphf_dynamic_kernel<WW>, a, (const int2*)z, mode, stride, o);
+        &cfg, mphf_dynamic_kernel<WW>, a, (const int2*)z, mode, stride, hint,
+        o);
     return er != cudaSuccess ? er : cudaGetLastError();
   });
   if (l2 && r == cudaSuccess) r = pa::l2_restore(old_limit);

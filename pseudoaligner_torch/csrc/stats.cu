@@ -119,6 +119,9 @@ extern "C" int pa_stats(const int64_t* params, const int64_t* index,
         threads == 1024
             ? cudaLaunchKernelEx(&cfg, stats_kernel<WW, 1024>, p, lv, packed,
                                  lens, ix, counts)
+        : threads == 512
+            ? cudaLaunchKernelEx(&cfg, stats_kernel<WW, 512>, p, lv, packed,
+                                 lens, ix, counts)
             : cudaLaunchKernelEx(&cfg, stats_kernel<WW, 256>, p, lv, packed,
                                  lens, ix, counts);
     return er != cudaSuccess ? er : cudaGetLastError();

@@ -135,7 +135,7 @@ def main() -> int:
 
     k3 = [(f"threads{th}{'+l2' if args.window else ''}", {
         "PA_TRIAL_STATS_L2": l2 if args.window else "0",
-        "PA_TRIAL_STATS_THREADS": str(th)}) for th in (256, 1024)]
+        "PA_TRIAL_STATS_THREADS": str(th)}) for th in (256, 512, 1024)]
     if args.phase == "k3":
         turns("stats", k3, lambda: kernels.stats_cuda(
             meta, idx, packed[last], lens), check_stats, [16])
@@ -170,12 +170,15 @@ def main() -> int:
 
     l2 = str(shard.pairs.numel() * 4) if args.window else "0"
     k8v = [(f"zero{z}{'+order' if o else ''}{'+l2' if args.window else ''}"
-             f"{'' if th == 256 else f'+t{th}'}",
+             f"{'' if th == 256 else f'+t{th}'}{'+hint' if h else ''}",
             {"PA_TRIAL_K8_ZERO": str(z), "PA_TRIAL_K8_ORDER": str(o),
-             "PA_TRIAL_K8_L2": l2, "PA_TRIAL_K8_THREADS": str(th)})
-           for z, o, th in ((0, 0, 256), (1, 0, 256), (2, 0, 256),
-                            (1, 1, 256), (2, 1, 256), (3, 1, 256),
-                            (3, 1, 512), (3, 1, 1024), (2, 1, 512))]
+             "PA_TRIAL_K8_L2": l2, "PA_TRIAL_K8_THREADS": str(th),
+             "PA_TRIAL_K8_HINT": str(h)})
+           for z, o, th, h in (
+               (0, 0, 256, 0), (1, 0, 256, 0), (2, 0, 256, 0),
+               (1, 1, 256, 0), (2, 1, 256, 0), (3, 1, 256, 0),
+               (3, 1, 512, 0), (3, 1, 1024, 0), (2, 1, 512, 0),
+               (2, 0, 512, 0), (2, 1, 1024, 0), (2, 1, 512, 1))]
     turns("mphf_dynamic", k8v, k8, check_k8, [16])
     # the same kernel on chip_smoke --batches 4's first 4 batches: exact,
     # one-SNP and reversed reads (its 16-batch run's first 4 are exact)
