@@ -1504,7 +1504,7 @@ def main(argv=None) -> int:
         seeds_k.append((node, off))
     del mdev
     # the send buffers' padding is the all-zero query, which K8 probes once
-    # per launch: where poly-A is not a key (this index) and, on a small
+    # per block: where poly-A is not a key (this index) and, on a small
     # lookup of a transcript set with a poly-A run, where it is
     from pseudoaligner_torch.index.builder import build_index
 

@@ -36,7 +36,6 @@
 #pragma once
 
 #include <cstdint>
-#include <cstdio>
 #include <cstdlib>
 #include <type_traits>
 #include <cuda_runtime.h>
@@ -153,20 +152,41 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// TRIAL: a launch attribute that keeps [base, base + bytes) persisting in
-// L2 for one launch; the device's persisting set-aside is raised to the
-// window (up to its maximum) the first time and left there.
-inline cudaError_t l2_window(const void* base, size_t bytes,
-                             cudaLaunchAttribute* at, size_t* old_limit) {
+// The launch attribute of an L2 access-policy window that keeps
+// [base, base + bytes) persisting in L2 while the launch's other reads
+// stream past it: the MPHF probers (K3, K8) keep their (bit word, rank
+// word) pairs there, which the random key and record reads would evict.
+// The window is an attribute of that launch alone.  The device's
+// persisting set-aside is raised to the window's size (at most the
+// device's maximum; the window's hit ratio covers the rest; no window where
+// the device has none) the first time and kept: setting it back after each launch cost 40-45% of K3's and K8's
+// time on the H100 (PERF.md, PR 7).
+inline int trial_l2_mode() {
+  const char* ev = getenv("PA_TRIAL_L2_MODE");
+  return ev ? atoi(ev) : 1;
+}
+
+inline cudaError_t persisting_window(const void* base, size_t bytes,
+                                     cudaLaunchAttribute* at,
+                                     size_t* old_limit = nullptr) {
+  if (trial_l2_mode() == 0) {
+    *at = {};
+    at->id = cudaLaunchAttributeIgnore;
+    return cudaSuccess;
+  }
   int dev = 0, max_win = 0, max_persist = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  cudaDeviceGetAttribute(&max_win, cudaDevAttrMaxAccessPolicyWindowSize, dev);
-  cudaDeviceGetAttribute(&max_persist, cudaDevAttrMaxPersistingL2CacheSize,
-                         dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_win, cudaDevAttrMaxAccessPolicyWindowSize,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&max_persist,
+                               cudaDevAttrMaxPersistingL2CacheSize, dev);
   size_t limit = 0;
-  cudaDeviceGetLimit(&limit, cudaLimitPersistingL2CacheSize);
-  *old_limit = limit;
+  if (e == cudaSuccess)
+    e = cudaDeviceGetLimit(&limit, cudaLimitPersistingL2CacheSize);
+  if (e != cudaSuccess) return e;
+  if (old_limit) *old_limit = limit;
   const size_t win = bytes < (size_t)max_win ? bytes : (size_t)max_win;
   const size_t want = win < (size_t)max_persist ? win : (size_t)max_persist;
   if (limit < want) {
@@ -174,22 +194,29 @@ inline cudaError_t l2_window(const void* base, size_t bytes,
     if (e != cudaSuccess) return e;
     limit = want;
   }
+  *at = {};
+  if (limit == 0 || win == 0) {  // no persisting L2 on this device
+    at->id = cudaLaunchAttributeIgnore;
+    return cudaSuccess;
+  }
   at->id = cudaLaunchAttributeAccessPolicyWindow;
   at->val.accessPolicyWindow.base_ptr = const_cast<void*>(base);
   at->val.accessPolicyWindow.num_bytes = win;
   at->val.accessPolicyWindow.hitRatio =
-      win == 0 ? 0.f : limit >= win ? 1.f : (float)limit / (float)win;
+      limit >= win ? 1.f : (float)limit / (float)win;
   at->val.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
   at->val.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
   return cudaSuccess;
 }
 
-// TRIAL: the set-aside back to old_limit after the launch when
-// PA_TRIAL_L2_RESTORE is 1.
-inline cudaError_t l2_restore(size_t old_limit) {
-  const char* ev = getenv("PA_TRIAL_L2_RESTORE");
-  if (!ev || atoi(ev) == 0) return cudaSuccess;
-  return cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, old_limit);
+// TRIAL: after a windowed launch, mode 2 sets the set-aside back, mode 3
+// resets the persisting lines.
+inline cudaError_t trial_after_window(size_t old_limit) {
+  const int m = trial_l2_mode();
+  if (m == 2) return cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize,
+                                        old_limit);
+  if (m == 3) return cudaCtxResetPersistingL2Cache();
+  return cudaSuccess;
 }
 
 // f(std::integral_constant<int, W>()) for the key width W = 1..4, so a

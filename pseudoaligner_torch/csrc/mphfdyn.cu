@@ -23,23 +23,30 @@
 // The send buffers are mostly padding: every unused slot holds the
 // all-zero query (at S = 1 three slots in four), and every all-zero query
 // has the same answer, the lookup of the poly-A k-mer, whether or not that
-// k-mer is a key.  So a one-block pre-pass probes the zero key once per
-// launch, and a thread whose query words are all zero writes that answer
-// without hashing or probing: the output is the reference's at every slot,
-// padding included.  Padding fills the tail of each source's segment, so
-// whole warps take that path.
+// k-mer is a key.  So thread 0 of a block that holds all-zero queries
+// probes the zero key once, and those threads write its answer without
+// hashing or probing: the output is the reference's at every slot, padding
+// included.  Padding fills the tail of each source's segment, so whole
+// warps take that path.
 //
-// Bound on the H100: memory bytes, but what limits it is the number of
-// dependent random reads per query and how many are in flight: per real
-// query its W key words, a pair per level tried (the pair array mostly
-// L2-resident) and one record sector where a level's bit is set; the
-// [N, 2] results written.
-
-#include <cstdlib>
+// Bound on the H100: memory bytes, but what limits it is the rate of
+// random reads: per real query its W key words, a pair per level tried and
+// one record sector where a level's bit is set; the [N, 2] results
+// written.  Three choices measured on the card (PERF.md, PR 7):
+// - an L2 persisting window over the pair array (common.cuh
+//   persisting_window), so the records' random reads do not evict it;
+// - blocks take the buffer's tiles in an interleaved order (block b takes
+//   tile b * stride mod the grid, stride about a quarter of the grid and
+//   coprime to it), so the probe-heavy tiles at the head of each segment
+//   run beside the padding tiles that only stream, not before them;
+// - 1024-thread blocks: one level-table copy and zero probe per 1024
+//   queries.
 
 #include "common.cuh"
 
 namespace {
+
+constexpr int THREADS = 1024;
 
 struct Dyn {
   int64_t n;
@@ -57,17 +64,6 @@ struct Dyn {
 // record_words).
 template <int W>
 constexpr int RECORD_WORDS = W + 2 <= 4 ? 4 : 8;
-
-// The shard's level table into shared memory (all threads of the block;
-// the caller synchronises).
-__device__ __forceinline__ void load_levels(const Dyn& a, pa::Levels& lv) {
-  for (int i = threadIdx.x; i < a.n_levels; i += blockDim.x) {
-    lv.seed[i] = a.seeds[i];
-    lv.mask[i] = a.masks[i];
-    lv.word_off[i] = (uint32_t)a.word_offsets[i];
-    lv.key_off[i] = (uint32_t)a.key_offsets[i];
-  }
-}
 
 // (node, offset) of the query words w: the record at the MPHF slot when its
 // key equals w, else (-1, -1).
@@ -88,144 +84,98 @@ __device__ __forceinline__ int2 lookup(const Dyn& a, const pa::Levels& lv,
   return r;
 }
 
-// The pre-pass: the all-zero query's result into *zero.
 template <int W>
-__global__ void zero_key_kernel(Dyn a, int2* __restrict__ zero) {
-  __shared__ pa::Levels lv;
-  load_levels(a, lv);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const uint32_t w[W] = {};
-    *zero = lookup<W>(a, lv, w);
-  }
-}
-
-// TRIAL zero modes: 0 probe every slot, 1 the pre-pass's answer, 2 a probe
-// of the zero key by thread 0 of each block that holds zero queries, 3 the
-// pre-pass's answer, and a block of zero queries alone skips the level
-// table
-template <int W>
-__global__ void mphf_dynamic_kernel(Dyn a, const int2* __restrict__ zero,
-                                    int mode, int64_t stride, int hint,
+__global__ void mphf_dynamic_kernel(Dyn a, int64_t stride,
                                     int2* __restrict__ out) {
   __shared__ pa::Levels lv;
-  __shared__ int2 zres;
-  // TRIAL: block b takes tile b * stride mod gridDim (stride coprime to
-  // it): neighbouring blocks take tiles a quarter of the buffer apart
+  __shared__ int2 zero;
+  for (int i = threadIdx.x; i < a.n_levels; i += blockDim.x) {
+    lv.seed[i] = a.seeds[i];
+    lv.mask[i] = a.masks[i];
+    lv.word_off[i] = (uint32_t)a.word_offsets[i];
+    lv.key_off[i] = (uint32_t)a.key_offsets[i];
+  }
+  __syncthreads();
   const int64_t tile = (int64_t)blockIdx.x * stride % gridDim.x;
   const int64_t t = tile * blockDim.x + threadIdx.x;
   const bool in = t < a.n;
   uint32_t w[W];
 #pragma unroll
   for (int j = 0; j < W; j++) w[j] = 0;
-  if (in) {
-    if (hint && W == 2) {
-      const uint2 q = __ldcs(reinterpret_cast<const uint2*>(a.queries) + t);
-      w[0] = q.x;
-      w[W - 1] = q.y;
-    } else {
-      pa::load_words<W>(a.queries + t * W, w);
-    }
-  }
+  if (in) pa::load_words<W>(a.queries + t * W, w);
   uint32_t any = 0;
 #pragma unroll
   for (int j = 0; j < W; j++) any |= w[j];
-  if (mode == 3) {
-    const bool real = in && any != 0;
-    if (!__syncthreads_or(real)) {
-      if (in) out[t] = __ldg(zero);
-      return;
+  const bool padded = in && any == 0;
+  if (__syncthreads_or(padded)) {
+    if (threadIdx.x == 0) {
+      const uint32_t zw[W] = {};
+      zero = lookup<W>(a, lv, zw);
     }
-    load_levels(a, lv);
+    int2 r = make_int2(-1, -1);
+    if (in && !padded) r = lookup<W>(a, lv, w);
     __syncthreads();
-    if (in) out[t] = real ? lookup<W>(a, lv, w) : __ldg(zero);
-    return;
+    if (in) out[t] = padded ? zero : r;
+  } else if (in) {
+    out[t] = lookup<W>(a, lv, w);
   }
-  load_levels(a, lv);
-  __syncthreads();
-  if (mode == 2) {
-    const bool z = in && any == 0;
-    if (__syncthreads_or(z)) {
-      if (threadIdx.x == 0) {
-        const uint32_t zw[W] = {};
-        zres = lookup<W>(a, lv, zw);
-      }
-      int2 r = make_int2(0, 0);
-      if (in && !z) r = lookup<W>(a, lv, w);
-      __syncthreads();
-      if (z) r = zres;
-      if (in) {
-        if (hint)
-          __stcs(out + t, r);
-        else
-          out[t] = r;
-      }
-      return;
-    }
+}
+
+int64_t gcd(int64_t x, int64_t y) {
+  while (y) {
+    const int64_t r = x % y;
+    x = y;
+    y = r;
   }
-  if (!in) return;
-  out[t] = (any == 0 && mode == 1) ? __ldg(zero) : lookup<W>(a, lv, w);
+  return x;
 }
 
 }  // namespace
 
 extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
                                const uint32_t* queries, const uint2* pairs,
-                               const uint32_t* seeds, const uint32_t* masks,
+                               long long n_pairs, const uint32_t* seeds,
+                               const uint32_t* masks,
                                const int32_t* word_offsets,
                                const int32_t* key_offsets,
-                               const uint32_t* records, int32_t* zero,
-                               int32_t* out, void* stream) {
+                               const uint32_t* records, int32_t* out,
+                               void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (W < 1 || W > pa::MAX_W || n_levels < 1 || n_levels > pa::MAX_LEVELS)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  Dyn a = {n, n_levels, queries, pairs, seeds, masks, word_offsets,
-           key_offsets, records};
-  const char* tev = getenv("PA_TRIAL_K8_THREADS");
-  const int threads = tev ? atoi(tev) : 256;
-  const int blocks = (int)((n + threads - 1) / threads);
-  cudaStream_t st = (cudaStream_t)stream;
-  // TRIAL knobs (read per launch)
-  const char* ev = getenv("PA_TRIAL_K8_ZERO");
-  const int mode = ev ? atoi(ev) : 1;
-  ev = getenv("PA_TRIAL_K8_HINT");
-  const int hint = ev ? atoi(ev) : 0;
-  ev = getenv("PA_TRIAL_K8_ORDER");
-  int64_t stride = 1;
-  if (ev && atoi(ev) && blocks > 4) {
-    stride = blocks / 4 + 1;
-    auto gcd = [](int64_t x, int64_t y) {
-      while (y) { const int64_t r = x % y; x = y; y = r; }
-      return x;
-    };
-    while (gcd(stride, blocks) != 1) stride++;
-  }
-  ev = getenv("PA_TRIAL_K8_L2");
-  const size_t l2 = ev ? (size_t)atoll(ev) : 0;
-  cudaLaunchAttribute attr[1] = {};
+  const Dyn a = {n, n_levels, queries, pairs, seeds, masks, word_offsets,
+                 key_offsets, records};
+  const int64_t blocks = (n + THREADS - 1) / THREADS;
+  int64_t stride = blocks / 4 + 1;
+  while (gcd(stride, blocks) != 1) stride++;
+  cudaLaunchAttribute attr;
   size_t old_limit = 0;
-  if (l2) {
-    e = pa::l2_window(pairs, l2, attr, &old_limit);
-    if (e != cudaSuccess) return (int)e;
-  }
+  e = pa::persisting_window(pairs, (size_t)n_pairs * sizeof(uint2), &attr,
+                            &old_limit);
+  if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = l2 ? 1 : 0;
-  int2* z = reinterpret_cast<int2*>(zero);
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
   int2* o = reinterpret_cast<int2*>(out);
-  cudaError_t r = pa::with_w(W, [&](auto w) {
-    constexpr int WW = decltype(w)::value;
-    if (mode == 1 || mode == 3) zero_key_kernel<WW><<<1, 64, 0, st>>>(a, z);
+  e = pa::with_w(W, [&](auto w) {
     const cudaError_t er = cudaLaunchKernelEx(
-        &cfg, mphf_dynamic_kernel<WW>, a, (const int2*)z, mode, stride, hint,
-        o);
+        &cfg, mphf_dynamic_kernel<decltype(w)::value>, a, stride, o);
     return er != cudaSuccess ? er : cudaGetLastError();
   });
-  if (l2 && r == cudaSuccess) r = pa::l2_restore(old_limit);
-  return (int)r;
+  if (e != cudaSuccess) return (int)e;
+  return (int)pa::trial_after_window(old_limit);
+}
+
+// TRIAL: reset the persisting lines and the set-aside.
+extern "C" int pa_l2_release(int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e == cudaSuccess) e = cudaCtxResetPersistingL2Cache();
+  if (e == cudaSuccess)
+    e = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, 0);
+  return (int)e;
 }

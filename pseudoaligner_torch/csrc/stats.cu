@@ -8,25 +8,30 @@
 // One thread per (read, position p).  A position is valid when
 // p <= len - k.  For a valid position the thread cuts the k-mer's words
 // from the packed read (common.cuh kmer_words, for the W the launch
-// picks), runs the MPHF level probe (common.cuh mphf_slot)
-// and compares the key stored at the slot: a hit when it equals, a false
-// positive when a slot came back but the key differs.  Each block sums its
-// threads' three flags (warp shuffles, then one warp over the per-warp
-// sums) and adds them to the int64 counters with one atomicAdd each; the
-// wrapper zeroes the counters before the launch.
+// picks), runs the MPHF level probe (common.cuh mphf_slot, one 8-byte
+// (bit word, rank word) load per level tried) and compares the key stored
+// at the slot: a hit when it equals, a false positive when a slot came back
+// but the key differs.  Each block sums its threads' three flags (warp
+// shuffles, then one warp over the per-warp sums) and adds them to the
+// int64 counters with one atomicAdd each; the wrapper zeroes the counters
+// before the launch.
 //
-// Bound on the H100: memory bytes.  Per valid position, the MPHF's bit and
-// rank words of each level tried and the W-word stored key at the slot,
-// random reads from arrays far larger than the 50 MB L2 at GENCODE scale.
-// The counters cost one atomic per block.
-
-#include <cstdlib>
+// Bound on the H100: memory bytes, but what limits it is the rate of
+// random reads: per valid position a pair per level tried (aliens try
+// several) and, where a level's bit is set, the W-word stored key, from a
+// key array far larger than the 50 MB L2.  An L2 persisting window over
+// the pair array (common.cuh persisting_window) keeps the key reads from
+// evicting it, and 1024-thread blocks make one set of atomics per 1024
+// positions; both measured on the card (PERF.md, PR 7), as was loading
+// two levels' pairs at once, which lost.
 
 #include "common.cuh"
 
 namespace {
 
-template <int W, int THREADS>
+constexpr int THREADS = 1024;
+
+template <int W>
 __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
                              const uint32_t* __restrict__ packed,
                              const int32_t* __restrict__ lens, pa::Index ix,
@@ -83,7 +88,7 @@ __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv
 }  // namespace
 
 extern "C" int pa_stats(const int64_t* params, const int64_t* index,
-                        int device, const uint32_t* packed,
+                        long long n_pairs, int device, const uint32_t* packed,
                         const int32_t* lens, unsigned long long* counts,
                         void* stream) {
   cudaError_t e = cudaSetDevice(device);
@@ -93,39 +98,21 @@ extern "C" int pa_stats(const int64_t* params, const int64_t* index,
   const pa::Levels lv = pa::levels_from(params);
   const pa::Index ix = pa::index_from(index);
   const int64_t n = (int64_t)p.B * p.P;
-  cudaStream_t st = (cudaStream_t)stream;
-  // TRIAL knob (read per launch): the bytes of the pair array to keep
-  // persisting in L2 (0: no window), a launch attribute of this launch alone
-  const char* ev = getenv("PA_TRIAL_STATS_L2");
-  const size_t l2 = ev ? (size_t)atoll(ev) : 0;
-  ev = getenv("PA_TRIAL_STATS_THREADS");
-  const int threads = ev ? atoi(ev) : 256;
-  const int blocks = (int)((n + threads - 1) / threads);
-  cudaLaunchAttribute attr[1] = {};
-  size_t old_limit = 0;
-  if (l2) {
-    e = pa::l2_window(ix.pairs, l2, attr, &old_limit);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int64_t blocks = (n + THREADS - 1) / THREADS;
+  cudaLaunchAttribute attr;
+  e = pa::persisting_window(ix.pairs, (size_t)n_pairs * sizeof(uint2),
+                            &attr);
+  if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = l2 ? 1 : 0;
-  cudaError_t r = pa::with_w(p.W, [&](auto w) {
-    constexpr int WW = decltype(w)::value;
-    const cudaError_t er =
-        threads == 1024
-            ? cudaLaunchKernelEx(&cfg, stats_kernel<WW, 1024>, p, lv, packed,
-                                 lens, ix, counts)
-        : threads == 512
-            ? cudaLaunchKernelEx(&cfg, stats_kernel<WW, 512>, p, lv, packed,
-                                 lens, ix, counts)
-            : cudaLaunchKernelEx(&cfg, stats_kernel<WW, 256>, p, lv, packed,
-                                 lens, ix, counts);
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return (int)pa::with_w(p.W, [&](auto w) {
+    const cudaError_t er = cudaLaunchKernelEx(
+        &cfg, stats_kernel<decltype(w)::value>, p, lv, packed, lens, ix,
+        counts);
     return er != cudaSuccess ? er : cudaGetLastError();
   });
-  if (l2 && r == cudaSuccess) r = pa::l2_restore(old_limit);
-  return (int)r;
 }

@@ -35,7 +35,8 @@ exact re-map marker, in the full output map_batch raises.  Every buffer
 slot gets the reference's result, padding included: the plain probe
 probes each slot, as the reference does (at S = 1 and slack 4, four
 probes per query); K8 probes the all-zero query, which every padded slot
-holds, once per launch and writes its result to every all-zero slot.
+holds, once per block that holds it and writes its result to every
+all-zero slot.
 """
 
 from __future__ import annotations

@@ -1,30 +1,29 @@
 #!/usr/bin/env python3
-"""Time the MPHF probers' design variants on one NVIDIA GPU, each against
-the others in turns on the same inputs and card: K3 (csrc/stats.cu) with
-and without an L2 persisting window over the pair array; K8
-(csrc/mphfdyn.cu) probing every slot, taking the zero key's answer from a
-pre-pass or from a per-block probe, each with and without the window.  The variants are chosen per launch by the PA_TRIAL_*
-environment variables the C entry points read.
+"""Time K8 (csrc/mphfdyn.cu) under each handling of its L2 persisting
+window, and a streaming copy and a random gather (plain PyTorch) before
+and after, on one NVIDIA GPU, to see what the window leaves behind for
+later kernels.  One process per mode (the set-aside and persisting lines
+outlive a launch):
 
-    python3 tools/probe_trials.py --phase k3|k8 [--window 0|1]
-        [--novel-bases 27000000] [--rounds 2]
+    python3 tools/probe_trials.py --mode 0|1|2|3 [--release]
 
-Data as chip_smoke.py makes it at its defaults (seed 0): the smoke-27M
-index through the port's `index` CLI, 16 batches of 65,536 reads of 60
-bases.  K3 runs on the last batch (reversed reads: aliens), K8 on the S = 1
-send buffers of batches 0-3 (cap 10,747,904), rotating, as chip_smoke's
-phases 5 and 12 time them.  Every variant's output is held equal to the
-plain version, tolerance 0.  Prints held ms per call (CUDA events, device
-held busy meanwhile) for each variant and round, then a JSON line.
+Modes (PA_TRIAL_L2_MODE, read by the C entry point per launch): 0 no
+window; 1 window, set-aside raised once and kept; 2 set-aside raised before
+and set back after each launch; 3 set-aside kept, persisting lines reset
+after each launch.  --release resets the lines and the set-aside once
+after the K8 loop (pa_l2_release) and probes again.  Data as chip_smoke.py
+at its defaults: the smoke-27M index, K8 on the S = 1 send buffers of the
+first 4 of 16 batches (exact reads), rotating; held ms per call (CUDA
+events, device held busy meanwhile).
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import sys
-import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
@@ -34,161 +33,71 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--novel-bases", type=int, default=27_000_000)
-    ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--phase", choices=("k3", "k8"), required=True)
-    ap.add_argument("--window", type=int, default=0,
-                    help="1: the variants with the L2 persisting window "
-                         "(run in a process of their own: the persisting "
-                         "set-aside and lines outlive a launch)")
-    ap.add_argument("--restore", type=int, default=0,
-                    help="1: the persisting set-aside back to its old size "
-                         "after each windowed launch")
-    ap.add_argument("--only", default="",
-                    help="comma-separated variant labels to run (default "
-                         "all)")
+    ap.add_argument("--mode", type=int, required=True)
+    ap.add_argument("--release", action="store_true")
     args = ap.parse_args()
-    os.environ["PA_TRIAL_L2_RESTORE"] = str(args.restore)
-    only = set(filter(None, args.only.split(",")))
+    os.environ["PA_TRIAL_L2_MODE"] = str(args.mode)
     cs.say(cs.card_line())
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("probe_trials: no CUDA device")
     from pseudoaligner_torch import cli
-    from pseudoaligner_torch.models.aligner import Pseudoaligner
     from pseudoaligner_torch.ops import kernels
     from pseudoaligner_torch.ops.map_kernel import pack_reads_host
     from pseudoaligner_torch.ops.mphf_lookup import dynamic_verified_lookup
-    from pseudoaligner_torch.ops.stats import stats_counts
     from pseudoaligner_torch.parallel import sharded_index as si
 
     dev = torch.device("cuda", 0)
-    t = time.time()
-    kernels.build()
-    cs.say(f"kernels built in {time.time() - t:.1f} s")
-    for line in kernels.build_log.splitlines():
-        if ("stats_kernel" in line or "mphf_dynamic" in line
-                or "zero_key" in line or "spill" in line or "Used" in line):
-            cs.say(f"  ptxas: {line.strip()}")
-    local = cs.local_memory(kernels.build_log)
-    if any(sum(v) for v in local.values()):
-        raise AssertionError(f"local memory in the kernels: {local}")
-    cs.say(f"ptxas: no stack frame or spill in the {len(local)} kernels")
-
+    lib = ctypes.CDLL(kernels.build())
     work = os.path.join(HERE, ".smoke", "trials")
     os.makedirs(work, exist_ok=True)
     fa, ip = os.path.join(work, "tx.fa"), os.path.join(work, "index.bin")
-    t = time.time()
-    seqs, names, gmap = cs.scale_seqs(args.novel_bases, 0)
+    seqs, names, gmap = cs.scale_seqs(27_000_000, 0)
     if not os.path.exists(ip):
         cs.write_fasta(fa, seqs, names, gmap)
         if cli.main(["index", "-i", ip, fa, "-n",
                      str(os.cpu_count())]) != 0:
             raise AssertionError("index CLI failed")
     image = cli.open_index(ip)
-    n_b = 16
-    reads = cs.recipe_reads(seqs, n_b * cs.BATCH, cs.READ_LEN, 3)
-    cs.say(f"index {image.mphf.n_keys} k-mers, {image.mphf.n_levels} levels,"
-           f" reads, in {time.time() - t:.1f} s")
+    reads = cs.recipe_reads(seqs, 16 * cs.BATCH, cs.READ_LEN, 3)
     lens = torch.full((cs.BATCH,), cs.READ_LEN, dtype=torch.int32,
                       device=dev)
-    packed = [torch.from_numpy(pack_reads_host(
-        reads[b * cs.BATCH:(b + 1) * cs.BATCH]).view(np.int32)).to(dev)
-        for b in range(n_b)]
-    out = {}
-
-    def turns(name, variants, call, check, reps_list):
-        """Each variant (label, env) timed by held events, in turns
-        (forward then backward order, args.rounds times), after its output
-        was checked against the plain version."""
-        variants = [v for v in variants if not only or v[0] in only]
-        for label, env in variants:
-            os.environ.update(env)
-            check(label)
-        res = {}
-        order = list(variants) + list(variants)[::-1]
-        for _ in range(args.rounds):
-            for label, env in order:
-                os.environ.update(env)
-                for reps in reps_list:
-                    ms = cs.held_ms(call, reps)
-                    res.setdefault(f"{label} reps {reps}", []).append(ms)
-        for key, v in res.items():
-            cs.say(f"[{name}] {key}: held ms {v}, mean {sum(v) / len(v)}")
-        out[name] = {k: sum(v) / len(v) for k, v in res.items()}
-
-    # ---- K3 on the reversed batch ----
-    cfg = cli.serving_config(20, cs.BATCH, cs.READ_LEN, seed_index="mphf")
-    al = Pseudoaligner(image, cfg, device="cuda")
-    meta, idx = al.meta, al.dev
-    last = n_b - 1
-    want = stats_counts(meta, idx, packed[last], lens)
-    l2 = str(idx.mphf_pairs.numel() * 4)
-    cs.say(f"[stats] pair array {l2} B; plain {want.tolist()}")
-
-    def check_stats(label):
-        got = kernels.stats_cuda(meta, idx, packed[last], lens)
-        if got.tolist() != want.tolist():
-            raise AssertionError(f"stats {label}: {got.tolist()}")
-
-    k3 = [(f"threads{th}{'+l2' if args.window else ''}", {
-        "PA_TRIAL_STATS_L2": l2 if args.window else "0",
-        "PA_TRIAL_STATS_THREADS": str(th)}) for th in (256, 512, 1024)]
-    if args.phase == "k3":
-        turns("stats", k3, lambda: kernels.stats_cuda(
-            meta, idx, packed[last], lens), check_stats, [16])
-        cs.say(json.dumps(out))
-        return 0
-    al.close()
-    del al, idx
-
-    # ---- K8 on the S = 1 send buffers of batches 0-3 ----
-    t = time.time()
     lookup_np, n_levels = si.build_sharded_lookup(image, 1)
     shard = si.upload_lookup(lookup_np, 0, dev)
-    del lookup_np
     cap = (max(64, int(4.0 * cs.BATCH * 41)) + 7) // 8 * 8
-    qs = [kernels.route_cuda(packed[b], lens, 20, cs.READ_LEN, 1, cap)[0]
-          .reshape(cap, -1) for b in range(4)]
-    plain = [dynamic_verified_lookup(q, shard, n_levels) for q in qs]
-    cs.say(f"[mphf_dynamic] lookup built and uploaded, {shard.nbytes()} B, "
-           f"{n_levels} levels, cap {cap}, in {time.time() - t:.1f} s")
+    qs = [kernels.route_cuda(torch.from_numpy(pack_reads_host(
+        reads[b * cs.BATCH:(b + 1) * cs.BATCH]).view(np.int32)).to(dev),
+        lens, 20, cs.READ_LEN, 1, cap)[0].reshape(cap, -1) for b in range(4)]
+    src = torch.randint(0, 2**31, (64 << 20,), dtype=torch.int32, device=dev)
+    dst = torch.empty_like(src)
+    idx = torch.randint(0, src.numel(), (16 << 20,), device=dev)
+    out = {}
 
-    def check_k8(label):
-        for q, p in zip(qs, plain):
-            if not torch.equal(kernels.mphf_dynamic_cuda(q, shard, n_levels),
-                               p):
-                raise AssertionError(f"mphf_dynamic {label} differs")
+    def probes(tag):
+        out[f"copy 256 MB {tag}"] = cs.held_ms(lambda: dst.copy_(src), 8)
+        out[f"gather 16M {tag}"] = cs.held_ms(lambda: src[idx], 8)
 
+    probes("before")
+    for q in qs:
+        if not torch.equal(kernels.mphf_dynamic_cuda(q, shard, n_levels),
+                           dynamic_verified_lookup(q, shard, n_levels)):
+            raise AssertionError("mphf_dynamic differs")
     calls = [0]
 
     def k8():
         calls[0] += 1
         return kernels.mphf_dynamic_cuda(qs[calls[0] % 4], shard, n_levels)
 
-    l2 = str(shard.pairs.numel() * 4) if args.window else "0"
-    k8v = [(f"zero{z}{'+order' if o else ''}{'+l2' if args.window else ''}"
-             f"{'' if th == 256 else f'+t{th}'}{'+hint' if h else ''}",
-            {"PA_TRIAL_K8_ZERO": str(z), "PA_TRIAL_K8_ORDER": str(o),
-             "PA_TRIAL_K8_L2": l2, "PA_TRIAL_K8_THREADS": str(th),
-             "PA_TRIAL_K8_HINT": str(h)})
-           for z, o, th, h in (
-               (0, 0, 256, 0), (1, 0, 256, 0), (2, 0, 256, 0),
-               (1, 1, 256, 0), (2, 1, 256, 0), (3, 1, 256, 0),
-               (3, 1, 512, 0), (3, 1, 1024, 0), (2, 1, 512, 0),
-               (2, 0, 512, 0), (2, 1, 1024, 0), (2, 1, 512, 1))]
-    turns("mphf_dynamic", k8v, k8, check_k8, [16])
-    # the same kernel on chip_smoke --batches 4's first 4 batches: exact,
-    # one-SNP and reversed reads (its 16-batch run's first 4 are exact)
-    mix = cs.recipe_reads(seqs, 4 * cs.BATCH, cs.READ_LEN, 3)
-    qs[:] = [kernels.route_cuda(torch.from_numpy(pack_reads_host(
-        mix[b * cs.BATCH:(b + 1) * cs.BATCH]).view(np.int32)).to(dev), lens,
-        20, cs.READ_LEN, 1, cap)[0].reshape(cap, -1) for b in range(4)]
-    plain[:] = [dynamic_verified_lookup(q, shard, n_levels) for q in qs]
-    turns("mphf_dynamic[4-batch reads]", k8v, k8, check_k8, [4, 16])
-    cs.say(json.dumps(out))
+    out["mphf_dynamic"] = [cs.held_ms(k8, 16) for _ in range(4)]
+    probes("after")
+    if args.release:
+        torch.cuda.synchronize()
+        rc = lib.pa_l2_release(0)
+        if rc:
+            raise AssertionError(f"pa_l2_release {rc}")
+        probes("released")
+        out["mphf_dynamic released"] = cs.held_ms(k8, 16)
+    cs.say(f"mode {args.mode}: " + json.dumps(out))
     return 0
 
 
