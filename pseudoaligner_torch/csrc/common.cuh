@@ -436,13 +436,43 @@ __device__ __forceinline__ void bucket1_probe(const Params& p,
 // verifies the stored key.  The levels are read one after another: loading
 // two levels' pairs at once costs more of the random-access rate that
 // bounds the probers than the round trip it saves (PERF.md, PR 7).
-template <int W>
+// TRIAL: L2 eviction-priority policies and loads / stores that carry them
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint2 ldg_hint(const uint2* a, uint64_t pol) {
+  uint2 r;
+  asm("ld.global.nc.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
+      : "=r"(r.x), "=r"(r.y) : "l"(a), "l"(pol));
+  return r;
+}
+__device__ __forceinline__ uint4 ldg_hint(const uint4* a, uint64_t pol) {
+  uint4 r;
+  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(a), "l"(pol));
+  return r;
+}
+__device__ __forceinline__ void st_hint(int2* a, int2 v, uint64_t pol) {
+  asm volatile("st.global.L2::cache_hint.v2.s32 [%0], {%1, %2}, %3;"
+               :: "l"(a), "r"(v.x), "r"(v.y), "l"(pol) : "memory");
+}
+
+template <int W, int HINT = 0>
 __device__ __forceinline__ int mphf_slot(int n_levels, const Levels& lv,
                                          const uint2* pairs,
                                          const uint32_t (&w)[W]) {
+  const uint64_t pol = HINT ? l2_evict_last() : 0;
   for (int l = 0; l < n_levels; l++) {
     const uint32_t h = hash_words<W>(w, lv.seed[l]) & lv.mask[l];
-    const uint2 p = __ldg(pairs + lv.word_off[l] + (h >> 5));
+    const uint2* at = pairs + lv.word_off[l] + (h >> 5);
+    const uint2 p = HINT ? ldg_hint(at, pol) : __ldg(at);
     const uint32_t bp = h & 31u;
     if ((p.x >> bp) & 1u)
       return (int)(lv.key_off[l] + p.y +

@@ -42,6 +42,8 @@
 // - 1024-thread blocks: one level-table copy and zero probe per 1024
 //   queries.
 
+#include <cstdlib>
+
 #include "common.cuh"
 
 namespace {
@@ -67,15 +69,29 @@ constexpr int RECORD_WORDS = W + 2 <= 4 ? 4 : 8;
 
 // (node, offset) of the query words w: the record at the MPHF slot when its
 // key equals w, else (-1, -1).
-template <int W>
+template <int W, int HINT>
 __device__ __forceinline__ int2 lookup(const Dyn& a, const pa::Levels& lv,
                                        const uint32_t (&w)[W]) {
   constexpr int RW = RECORD_WORDS<W>;
-  const int slot = pa::mphf_slot<W>(a.n_levels, lv, a.pairs, w);
+  const int slot = pa::mphf_slot<W, HINT & 1>(a.n_levels, lv, a.pairs, w);
   int2 r = make_int2(-1, -1);
   if (slot >= 0) {
     uint32_t rec[RW];
-    pa::load_words<RW>(a.records + (size_t)slot * RW, rec);
+    if (HINT & 2) {
+      const uint64_t pol = pa::l2_evict_first();
+      const uint4* at =
+          reinterpret_cast<const uint4*>(a.records + (size_t)slot * RW);
+#pragma unroll
+      for (int i = 0; i < RW / 4; i++) {
+        const uint4 x = pa::ldg_hint(at + i, pol);
+        rec[4 * i] = x.x;
+        rec[4 * i + 1] = x.y;
+        rec[4 * i + 2] = x.z;
+        rec[4 * i + 3] = x.w;
+      }
+    } else {
+      pa::load_words<RW>(a.records + (size_t)slot * RW, rec);
+    }
     bool eq = true;
 #pragma unroll
     for (int j = 0; j < W; j++) eq = eq && (rec[j] == w[j]);
@@ -84,7 +100,7 @@ __device__ __forceinline__ int2 lookup(const Dyn& a, const pa::Levels& lv,
   return r;
 }
 
-template <int W>
+template <int W, int HINT>
 __global__ void mphf_dynamic_kernel(Dyn a, int64_t stride,
                                     int2* __restrict__ out) {
   __shared__ pa::Levels lv;
@@ -102,23 +118,37 @@ __global__ void mphf_dynamic_kernel(Dyn a, int64_t stride,
   uint32_t w[W];
 #pragma unroll
   for (int j = 0; j < W; j++) w[j] = 0;
-  if (in) pa::load_words<W>(a.queries + t * W, w);
+  if (in) {
+    if ((HINT & 2) && W == 2) {
+      const uint2 q = pa::ldg_hint(reinterpret_cast<const uint2*>(a.queries) + t,
+                                   pa::l2_evict_first());
+      w[0] = q.x;
+      w[W - 1] = q.y;
+    } else {
+      pa::load_words<W>(a.queries + t * W, w);
+    }
+  }
   uint32_t any = 0;
 #pragma unroll
   for (int j = 0; j < W; j++) any |= w[j];
   const bool padded = in && any == 0;
+  int2 r = make_int2(-1, -1);
   if (__syncthreads_or(padded)) {
     if (threadIdx.x == 0) {
       const uint32_t zw[W] = {};
-      zero = lookup<W>(a, lv, zw);
+      zero = lookup<W, HINT>(a, lv, zw);
     }
-    int2 r = make_int2(-1, -1);
-    if (in && !padded) r = lookup<W>(a, lv, w);
+    if (in && !padded) r = lookup<W, HINT>(a, lv, w);
     __syncthreads();
-    if (in) out[t] = padded ? zero : r;
+    if (padded) r = zero;
   } else if (in) {
-    out[t] = lookup<W>(a, lv, w);
+    r = lookup<W, HINT>(a, lv, w);
   }
+  if (!in) return;
+  if (HINT & 2)
+    pa::st_hint(out + t, r, pa::l2_evict_first());
+  else
+    out[t] = r;
 }
 
 int64_t gcd(int64_t x, int64_t y) {
@@ -162,9 +192,19 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   int2* o = reinterpret_cast<int2*>(out);
+  const char* ev = getenv("PA_TRIAL_K8_HINT");
+  const int hint = ev ? atoi(ev) : 0;
   e = pa::with_w(W, [&](auto w) {
-    const cudaError_t er = cudaLaunchKernelEx(
-        &cfg, mphf_dynamic_kernel<decltype(w)::value>, a, stride, o);
+    constexpr int WW = decltype(w)::value;
+    const cudaError_t er =
+        hint == 1 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 1>, a,
+                                       stride, o)
+        : hint == 2 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 2>, a,
+                                         stride, o)
+        : hint == 3 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 3>, a,
+                                         stride, o)
+                    : cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 0>, a,
+                                         stride, o);
     return er != cudaSuccess ? er : cudaGetLastError();
   });
   if (e != cudaSuccess) return (int)e;

@@ -25,13 +25,15 @@
 // positions; both measured on the card (PERF.md, PR 7), as was loading
 // two levels' pairs at once, which lost.
 
+#include <cstdlib>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 1024;
 
-template <int W>
+template <int W, int HINT>
 __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
                              const uint32_t* __restrict__ packed,
                              const int32_t* __restrict__ lens, pa::Index ix,
@@ -46,9 +48,19 @@ __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv
       uint32_t w[W];
       pa::kmer_words<W>(pa::window_words(packed + (size_t)b * p.nw, p.nw),
                         pos, p.k, w);
-      const int slot = pa::mphf_slot<W>(p.n_levels, lv, ix.pairs, w);
+      const int slot = pa::mphf_slot<W, HINT & 1>(p.n_levels, lv, ix.pairs,
+                                                  w);
       if (slot >= 0) {
-        if (pa::key_at_slot_equals<W>(ix.keys, slot, w))
+        bool eq;
+        if ((HINT & 2) && W == 2) {
+          const uint2 k = pa::ldg_hint(
+              reinterpret_cast<const uint2*>(ix.keys) + slot,
+              pa::l2_evict_first());
+          eq = k.x == w[0] && k.y == w[W - 1];
+        } else {
+          eq = pa::key_at_slot_equals<W>(ix.keys, slot, w);
+        }
+        if (eq)
           hit = 1;
         else
           fp = 1;
@@ -109,10 +121,19 @@ extern "C" int pa_stats(const int64_t* params, const int64_t* index,
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
+  const char* ev = getenv("PA_TRIAL_STATS_HINT");
+  const int hint = ev ? atoi(ev) : 0;
   return (int)pa::with_w(p.W, [&](auto w) {
-    const cudaError_t er = cudaLaunchKernelEx(
-        &cfg, stats_kernel<decltype(w)::value>, p, lv, packed, lens, ix,
-        counts);
+    constexpr int WW = decltype(w)::value;
+    const cudaError_t er =
+        hint == 1 ? cudaLaunchKernelEx(&cfg, stats_kernel<WW, 1>, p, lv,
+                                       packed, lens, ix, counts)
+        : hint == 2 ? cudaLaunchKernelEx(&cfg, stats_kernel<WW, 2>, p, lv,
+                                         packed, lens, ix, counts)
+        : hint == 3 ? cudaLaunchKernelEx(&cfg, stats_kernel<WW, 3>, p, lv,
+                                         packed, lens, ix, counts)
+                    : cudaLaunchKernelEx(&cfg, stats_kernel<WW, 0>, p, lv,
+                                         packed, lens, ix, counts);
     return er != cudaSuccess ? er : cudaGetLastError();
   });
 }

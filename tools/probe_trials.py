@@ -35,8 +35,15 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", type=int, required=True)
     ap.add_argument("--release", action="store_true")
+    ap.add_argument("--hint", type=int, default=0,
+                    help="L2 eviction priorities (K8 PA_TRIAL_K8_HINT, K3 "
+                         "PA_TRIAL_STATS_HINT): bit 0 the pairs evict_last, "
+                         "bit 1 the other reads and writes evict_first")
+    ap.add_argument("--phase", choices=("k3", "k8"), default="k8")
     args = ap.parse_args()
     os.environ["PA_TRIAL_L2_MODE"] = str(args.mode)
+    os.environ["PA_TRIAL_K8_HINT"] = str(args.hint)
+    os.environ["PA_TRIAL_STATS_HINT"] = str(args.hint)
     cs.say(cs.card_line())
     import numpy as np
     import torch
@@ -62,12 +69,6 @@ def main() -> int:
     reads = cs.recipe_reads(seqs, 16 * cs.BATCH, cs.READ_LEN, 3)
     lens = torch.full((cs.BATCH,), cs.READ_LEN, dtype=torch.int32,
                       device=dev)
-    lookup_np, n_levels = si.build_sharded_lookup(image, 1)
-    shard = si.upload_lookup(lookup_np, 0, dev)
-    cap = (max(64, int(4.0 * cs.BATCH * 41)) + 7) // 8 * 8
-    qs = [kernels.route_cuda(torch.from_numpy(pack_reads_host(
-        reads[b * cs.BATCH:(b + 1) * cs.BATCH]).view(np.int32)).to(dev),
-        lens, 20, cs.READ_LEN, 1, cap)[0].reshape(cap, -1) for b in range(4)]
     src = torch.randint(0, 2**31, (64 << 20,), dtype=torch.int32, device=dev)
     dst = torch.empty_like(src)
     idx = torch.randint(0, src.numel(), (16 << 20,), device=dev)
@@ -77,6 +78,30 @@ def main() -> int:
         out[f"copy 256 MB {tag}"] = cs.held_ms(lambda: dst.copy_(src), 8)
         out[f"gather 16M {tag}"] = cs.held_ms(lambda: src[idx], 8)
 
+    if args.phase == "k3":
+        from pseudoaligner_torch.models.aligner import Pseudoaligner
+        from pseudoaligner_torch.ops.stats import stats_counts
+
+        al = Pseudoaligner(image, cli.serving_config(
+            20, cs.BATCH, cs.READ_LEN, seed_index="mphf"), device="cuda")
+        pk = torch.from_numpy(pack_reads_host(
+            reads[15 * cs.BATCH:]).view(np.int32)).to(dev)
+        probes("before")
+        want = stats_counts(al.meta, al.dev, pk, lens)
+        got = kernels.stats_cuda(al.meta, al.dev, pk, lens)
+        if got.tolist() != want.tolist():
+            raise AssertionError(f"stats {got.tolist()} {want.tolist()}")
+        out["stats"] = [cs.held_ms(lambda: kernels.stats_cuda(
+            al.meta, al.dev, pk, lens), 16) for _ in range(4)]
+        probes("after")
+        cs.say(f"k3 mode {args.mode} hint {args.hint}: " + json.dumps(out))
+        return 0
+    lookup_np, n_levels = si.build_sharded_lookup(image, 1)
+    shard = si.upload_lookup(lookup_np, 0, dev)
+    cap = (max(64, int(4.0 * cs.BATCH * 41)) + 7) // 8 * 8
+    qs = [kernels.route_cuda(torch.from_numpy(pack_reads_host(
+        reads[b * cs.BATCH:(b + 1) * cs.BATCH]).view(np.int32)).to(dev),
+        lens, 20, cs.READ_LEN, 1, cap)[0].reshape(cap, -1) for b in range(4)]
     probes("before")
     for q in qs:
         if not torch.equal(kernels.mphf_dynamic_cuda(q, shard, n_levels),
@@ -97,7 +122,7 @@ def main() -> int:
             raise AssertionError(f"pa_l2_release {rc}")
         probes("released")
         out["mphf_dynamic released"] = cs.held_ms(k8, 16)
-    cs.say(f"mode {args.mode}: " + json.dumps(out))
+    cs.say(f"k8 mode {args.mode} hint {args.hint}: " + json.dumps(out))
     return 0
 
 
