@@ -119,7 +119,7 @@ __global__ void mphf_dynamic_kernel(Dyn a, int64_t stride,
 #pragma unroll
   for (int j = 0; j < W; j++) w[j] = 0;
   if (in) {
-    if ((HINT & 2) && W == 2) {
+    if ((HINT & 4) && W == 2) {
       const uint2 q = pa::ldg_hint(reinterpret_cast<const uint2*>(a.queries) + t,
                                    pa::l2_evict_first());
       w[0] = q.x;
@@ -145,7 +145,7 @@ __global__ void mphf_dynamic_kernel(Dyn a, int64_t stride,
     r = lookup<W, HINT>(a, lv, w);
   }
   if (!in) return;
-  if (HINT & 2)
+  if (HINT & 8)
     pa::st_hint(out + t, r, pa::l2_evict_first());
   else
     out[t] = r;
@@ -177,7 +177,9 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   if (n == 0) return 0;
   const Dyn a = {n, n_levels, queries, pairs, seeds, masks, word_offsets,
                  key_offsets, records};
-  const int64_t blocks = (n + THREADS - 1) / THREADS;
+  const char* tev = getenv("PA_TRIAL_K8_THREADS");
+  const int threads = tev ? atoi(tev) : THREADS;
+  const int64_t blocks = (n + threads - 1) / threads;
   int64_t stride = blocks / 4 + 1;
   while (gcd(stride, blocks) != 1) stride++;
   cudaLaunchAttribute attr;
@@ -187,7 +189,7 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)blocks);
-  cfg.blockDim = dim3(THREADS);
+  cfg.blockDim = dim3(threads);
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
@@ -197,14 +199,16 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   e = pa::with_w(W, [&](auto w) {
     constexpr int WW = decltype(w)::value;
     const cudaError_t er =
-        hint == 1 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 1>, a,
+        hint == 2 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 2>, a,
                                        stride, o)
-        : hint == 2 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 2>, a,
+        : hint == 6 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 6>, a,
                                          stride, o)
-        : hint == 3 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 3>, a,
-                                         stride, o)
-                    : cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 0>, a,
-                                         stride, o);
+        : hint == 10 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 10>,
+                                          a, stride, o)
+        : hint == 14 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 14>,
+                                          a, stride, o)
+                     : cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 0>, a,
+                                          stride, o);
     return er != cudaSuccess ? er : cudaGetLastError();
   });
   if (e != cudaSuccess) return (int)e;

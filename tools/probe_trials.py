@@ -36,14 +36,17 @@ def main() -> int:
     ap.add_argument("--mode", type=int, required=True)
     ap.add_argument("--release", action="store_true")
     ap.add_argument("--hint", type=int, default=0,
-                    help="L2 eviction priorities (K8 PA_TRIAL_K8_HINT, K3 "
-                         "PA_TRIAL_STATS_HINT): bit 0 the pairs evict_last, "
-                         "bit 1 the other reads and writes evict_first")
+                    help="L2 eviction priorities (K8 PA_TRIAL_K8_HINT: bit 1 "
+                         "the records, 2 the queries, 3 the results "
+                         "evict_first; K3 PA_TRIAL_STATS_HINT: bit 0 the "
+                         "pairs evict_last, bit 1 the keys evict_first)")
     ap.add_argument("--phase", choices=("k3", "k8"), default="k8")
+    ap.add_argument("--threads", type=int, default=1024)
     args = ap.parse_args()
     os.environ["PA_TRIAL_L2_MODE"] = str(args.mode)
     os.environ["PA_TRIAL_K8_HINT"] = str(args.hint)
     os.environ["PA_TRIAL_STATS_HINT"] = str(args.hint)
+    os.environ["PA_TRIAL_K8_THREADS"] = str(args.threads)
     cs.say(cs.card_line())
     import numpy as np
     import torch
@@ -122,7 +125,8 @@ def main() -> int:
             raise AssertionError(f"pa_l2_release {rc}")
         probes("released")
         out["mphf_dynamic released"] = cs.held_ms(k8, 16)
-    cs.say(f"k8 mode {args.mode} hint {args.hint}: " + json.dumps(out))
+    cs.say(f"k8 mode {args.mode} hint {args.hint} threads {args.threads}: "
+           + json.dumps(out))
     return 0
 
 
