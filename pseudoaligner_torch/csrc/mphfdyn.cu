@@ -100,8 +100,27 @@ __device__ __forceinline__ int2 lookup(const Dyn& a, const pa::Levels& lv,
   return r;
 }
 
+// TRIAL: the pre-pass's zero-key answer (one stream at a time)
+__device__ int2 g_zero;
+
+template <int W>
+__global__ void zero_key_kernel(Dyn a) {
+  __shared__ pa::Levels lv;
+  for (int i = threadIdx.x; i < a.n_levels; i += blockDim.x) {
+    lv.seed[i] = a.seeds[i];
+    lv.mask[i] = a.masks[i];
+    lv.word_off[i] = (uint32_t)a.word_offsets[i];
+    lv.key_off[i] = (uint32_t)a.key_offsets[i];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const uint32_t zw[W] = {};
+    g_zero = lookup<W, 0>(a, lv, zw);
+  }
+}
+
 template <int W, int HINT>
-__global__ void mphf_dynamic_kernel(Dyn a, int64_t stride,
+__global__ void mphf_dynamic_kernel(Dyn a, int64_t stride, int zmode,
                                     int2* __restrict__ out) {
   __shared__ pa::Levels lv;
   __shared__ int2 zero;
@@ -133,10 +152,13 @@ __global__ void mphf_dynamic_kernel(Dyn a, int64_t stride,
   for (int j = 0; j < W; j++) any |= w[j];
   const bool padded = in && any == 0;
   int2 r = make_int2(-1, -1);
-  if (__syncthreads_or(padded)) {
+  if (zmode == 5) {
+    if (padded) r = g_zero;
+    else if (in) r = lookup<W, HINT>(a, lv, w);
+  } else if (__syncthreads_or(padded)) {
     if (threadIdx.x == 0) {
       const uint32_t zw[W] = {};
-      zero = lookup<W, HINT>(a, lv, zw);
+      zero = zmode == 4 ? lookup<W, 0>(a, lv, zw) : lookup<W, HINT>(a, lv, zw);
     }
     if (in && !padded) r = lookup<W, HINT>(a, lv, w);
     __syncthreads();
@@ -196,19 +218,22 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   int2* o = reinterpret_cast<int2*>(out);
   const char* ev = getenv("PA_TRIAL_K8_HINT");
   const int hint = ev ? atoi(ev) : 0;
+  const char* zev = getenv("PA_TRIAL_K8_ZERO");
+  const int zmode = zev ? atoi(zev) : 2;
   e = pa::with_w(W, [&](auto w) {
     constexpr int WW = decltype(w)::value;
+    if (zmode == 5) zero_key_kernel<WW><<<1, 64, 0, cfg.stream>>>(a);
     const cudaError_t er =
         hint == 2 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 2>, a,
-                                       stride, o)
+                                       stride, zmode, o)
         : hint == 6 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 6>, a,
-                                         stride, o)
+                                         stride, zmode, o)
         : hint == 10 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 10>,
-                                          a, stride, o)
+                                          a, stride, zmode, o)
         : hint == 14 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 14>,
-                                          a, stride, o)
+                                          a, stride, zmode, o)
                      : cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 0>, a,
-                                          stride, o);
+                                          stride, zmode, o);
     return er != cudaSuccess ? er : cudaGetLastError();
   });
   if (e != cudaSuccess) return (int)e;

@@ -42,11 +42,15 @@ def main() -> int:
                          "pairs evict_last, bit 1 the keys evict_first)")
     ap.add_argument("--phase", choices=("k3", "k8"), default="k8")
     ap.add_argument("--threads", type=int, default=1024)
+    ap.add_argument("--zero", type=int, default=2,
+                    help="K8 PA_TRIAL_K8_ZERO: 2 per-block zero probe with "
+                         "the hints, 4 without them, 5 a one-block pre-pass")
     args = ap.parse_args()
     os.environ["PA_TRIAL_L2_MODE"] = str(args.mode)
     os.environ["PA_TRIAL_K8_HINT"] = str(args.hint)
     os.environ["PA_TRIAL_STATS_HINT"] = str(args.hint)
     os.environ["PA_TRIAL_K8_THREADS"] = str(args.threads)
+    os.environ["PA_TRIAL_K8_ZERO"] = str(args.zero)
     cs.say(cs.card_line())
     import numpy as np
     import torch
@@ -125,7 +129,8 @@ def main() -> int:
             raise AssertionError(f"pa_l2_release {rc}")
         probes("released")
         out["mphf_dynamic released"] = cs.held_ms(k8, 16)
-    cs.say(f"k8 mode {args.mode} hint {args.hint} threads {args.threads}: "
+    cs.say(f"k8 mode {args.mode} hint {args.hint} threads {args.threads} "
+           f"zero {args.zero}: "
            + json.dumps(out))
     return 0
 
