@@ -32,9 +32,10 @@ Phases (every number printed is for the card named on the first line):
    once more for the device's busy share and its time per batch in copies
    and kernels;
 5. bucket1 and MPHF seed indexes on the same index image: device bytes
-   (each upload's bytes are its arrays' bytes) and serve-init time; K1 under each and K2 in the bucket1 serving shape
-   (lazy seeds) on 4 batches spread over the file, K2 in the MPHF uncapped
-   full-output shape on the middle one, and the stats kernel (K3) against
+   (each upload's bytes are its arrays' bytes) and serve-init time; K1
+   under each and K2 in the bucket1 serving shape (lazy seeds) on 4
+   batches spread over the file, K2 in the MPHF uncapped full-output shape
+   on the middle one, and the stats kernel (K3) against
    `batch_stats`' plain version on the last one (its reversed reads give
    MPHF false positives), all tolerance 0 and timed as in phase 3; the
    serving loop of phase 4 once per index;
@@ -693,8 +694,9 @@ def gfetch_work(recv, ww):
 
 def lookup_bytes(lookups, S: int, defaults: bool) -> int:
     """A kpart shard's lookup bytes (every shard's are equal): each storage
-    once, and no more than the separate arrays' bytes (K8's paired words and
-    16-byte records at k = 20); at the default arguments LOOKUP_BYTES[S]."""
+    once, equal to the separate arrays' bytes (K8's paired words and
+    16-byte records at k = 20), and at the default arguments
+    LOOKUP_BYTES[S]."""
     got = {lk.nbytes() for lk in lookups}
     arrays = {sum(a.numel() * a.element_size() for a in lk)
               for lk in lookups}

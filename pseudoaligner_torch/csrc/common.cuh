@@ -36,7 +36,6 @@
 #pragma once
 
 #include <cstdint>
-#include <cstdlib>
 #include <type_traits>
 #include <cuda_runtime.h>
 
@@ -152,73 +151,6 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// The launch attribute of an L2 access-policy window that keeps
-// [base, base + bytes) persisting in L2 while the launch's other reads
-// stream past it: the MPHF probers (K3, K8) keep their (bit word, rank
-// word) pairs there, which the random key and record reads would evict.
-// The window is an attribute of that launch alone.  The device's
-// persisting set-aside is raised to the window's size (at most the
-// device's maximum; the window's hit ratio covers the rest; no window where
-// the device has none) the first time and kept: setting it back after each launch cost 40-45% of K3's and K8's
-// time on the H100 (PERF.md, PR 7).
-inline int trial_l2_mode() {
-  const char* ev = getenv("PA_TRIAL_L2_MODE");
-  return ev ? atoi(ev) : 1;
-}
-
-inline cudaError_t persisting_window(const void* base, size_t bytes,
-                                     cudaLaunchAttribute* at,
-                                     size_t* old_limit = nullptr) {
-  if (trial_l2_mode() == 0) {
-    *at = {};
-    at->id = cudaLaunchAttributeIgnore;
-    return cudaSuccess;
-  }
-  int dev = 0, max_win = 0, max_persist = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&max_win, cudaDevAttrMaxAccessPolicyWindowSize,
-                               dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&max_persist,
-                               cudaDevAttrMaxPersistingL2CacheSize, dev);
-  size_t limit = 0;
-  if (e == cudaSuccess)
-    e = cudaDeviceGetLimit(&limit, cudaLimitPersistingL2CacheSize);
-  if (e != cudaSuccess) return e;
-  if (old_limit) *old_limit = limit;
-  const size_t win = bytes < (size_t)max_win ? bytes : (size_t)max_win;
-  const size_t want = win < (size_t)max_persist ? win : (size_t)max_persist;
-  if (limit < want) {
-    e = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, want);
-    if (e != cudaSuccess) return e;
-    limit = want;
-  }
-  *at = {};
-  if (limit == 0 || win == 0) {  // no persisting L2 on this device
-    at->id = cudaLaunchAttributeIgnore;
-    return cudaSuccess;
-  }
-  at->id = cudaLaunchAttributeAccessPolicyWindow;
-  at->val.accessPolicyWindow.base_ptr = const_cast<void*>(base);
-  at->val.accessPolicyWindow.num_bytes = win;
-  at->val.accessPolicyWindow.hitRatio =
-      limit >= win ? 1.f : (float)limit / (float)win;
-  at->val.accessPolicyWindow.hitProp = cudaAccessPropertyPersisting;
-  at->val.accessPolicyWindow.missProp = cudaAccessPropertyStreaming;
-  return cudaSuccess;
-}
-
-// TRIAL: after a windowed launch, mode 2 sets the set-aside back, mode 3
-// resets the persisting lines.
-inline cudaError_t trial_after_window(size_t old_limit) {
-  const int m = trial_l2_mode();
-  if (m == 2) return cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize,
-                                        old_limit);
-  if (m == 3) return cudaCtxResetPersistingL2Cache();
-  return cudaSuccess;
-}
-
 // f(std::integral_constant<int, W>()) for the key width W = 1..4, so a
 // launch picks the kernel instantiated for it; an invalid W is
 // cudaErrorInvalidValue.
@@ -308,6 +240,53 @@ __device__ __forceinline__ void kmer_words(Word word, int p, int k,
   if (pad > 0) y[0] &= ~((1u << pad) - 1u);
 #pragma unroll
   for (int j = 0; j < W; j++) out[j] = rev2(y[W - 1 - j]);
+}
+
+// An L2 evict-first cache policy (createpolicy, sm_80+): lines a load or a
+// store brings in under it are the first the L2 evicts.
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t pol;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
+  return pol;
+}
+
+// load_words under the evict-first policy, for data no later read of the
+// launch wants from L2: the MPHF probers (K3, K8) read their random keys or
+// records, their streamed queries and results this way, so those do not
+// evict the (bit word, rank word) pairs every probe reads (K3 20%, K8 12%
+// faster on the H100; an L2 persisting window over the pairs did as well,
+// but the L2 set-aside it needs halved the streaming rate of every later
+// kernel: PERF.md §6).
+template <int N>
+__device__ __forceinline__ void load_words_evict_first(const uint32_t* p,
+                                                       uint32_t (&r)[N]) {
+  const uint64_t pol = evict_first_policy();
+  if (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; i++)
+      asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
+          : "=r"(r[4 * i]), "=r"(r[4 * i + 1]), "=r"(r[4 * i + 2]),
+            "=r"(r[4 * i + 3])
+          : "l"(p + 4 * i), "l"(pol));
+  } else if (N % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 2; i++)
+      asm("ld.global.nc.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
+          : "=r"(r[2 * i]), "=r"(r[2 * i + 1])
+          : "l"(p + 2 * i), "l"(pol));
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; i++)
+      asm("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;"
+          : "=r"(r[i]) : "l"(p + i), "l"(pol));
+  }
+}
+
+// One 8-byte store under the evict-first policy.
+__device__ __forceinline__ void store_evict_first(int2* p, int2 v) {
+  asm volatile("st.global.L2::cache_hint.v2.s32 [%0], {%1, %2}, %3;"
+               :: "l"(p), "r"(v.x), "r"(v.y), "l"(evict_first_policy())
+               : "memory");
 }
 
 // N consecutive words from p into registers, in 16-byte loads where N is a
@@ -435,44 +414,14 @@ __device__ __forceinline__ void bucket1_probe(const Params& p,
 // level's bit is set.  An alien k-mer can land on a set bit: the caller
 // verifies the stored key.  The levels are read one after another: loading
 // two levels' pairs at once costs more of the random-access rate that
-// bounds the probers than the round trip it saves (PERF.md, PR 7).
-// TRIAL: L2 eviction-priority policies and loads / stores that carry them
-__device__ __forceinline__ uint64_t l2_evict_last() {
-  uint64_t p;
-  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
-  return p;
-}
-__device__ __forceinline__ uint64_t l2_evict_first() {
-  uint64_t p;
-  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
-  return p;
-}
-__device__ __forceinline__ uint2 ldg_hint(const uint2* a, uint64_t pol) {
-  uint2 r;
-  asm("ld.global.nc.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
-      : "=r"(r.x), "=r"(r.y) : "l"(a), "l"(pol));
-  return r;
-}
-__device__ __forceinline__ uint4 ldg_hint(const uint4* a, uint64_t pol) {
-  uint4 r;
-  asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
-      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(a), "l"(pol));
-  return r;
-}
-__device__ __forceinline__ void st_hint(int2* a, int2 v, uint64_t pol) {
-  asm volatile("st.global.L2::cache_hint.v2.s32 [%0], {%1, %2}, %3;"
-               :: "l"(a), "r"(v.x), "r"(v.y), "l"(pol) : "memory");
-}
-
-template <int W, int HINT = 0>
+// bounds the probers than the round trip it saves (PERF.md §6).
+template <int W>
 __device__ __forceinline__ int mphf_slot(int n_levels, const Levels& lv,
                                          const uint2* pairs,
                                          const uint32_t (&w)[W]) {
-  const uint64_t pol = HINT ? l2_evict_last() : 0;
   for (int l = 0; l < n_levels; l++) {
     const uint32_t h = hash_words<W>(w, lv.seed[l]) & lv.mask[l];
-    const uint2* at = pairs + lv.word_off[l] + (h >> 5);
-    const uint2 p = HINT ? ldg_hint(at, pol) : __ldg(at);
+    const uint2 p = __ldg(pairs + lv.word_off[l] + (h >> 5));
     const uint32_t bp = h & 31u;
     if ((p.x >> bp) & 1u)
       return (int)(lv.key_off[l] + p.y +
@@ -481,13 +430,17 @@ __device__ __forceinline__ int mphf_slot(int n_levels, const Levels& lv,
   return -1;
 }
 
-// Whether the key stored at MPHF slot `slot` equals the query words.
-template <int W>
+// Whether the key stored at MPHF slot `slot` equals the query words; the
+// key read under the evict-first policy when EVICT_FIRST.
+template <int W, bool EVICT_FIRST = false>
 __device__ __forceinline__ bool key_at_slot_equals(const uint32_t* keys,
                                                    int slot,
                                                    const uint32_t (&w)[W]) {
   uint32_t k[W];
-  load_words<W>(keys + (size_t)slot * W, k);
+  if (EVICT_FIRST)
+    load_words_evict_first<W>(keys + (size_t)slot * W, k);
+  else
+    load_words<W>(keys + (size_t)slot * W, k);
   bool eq = true;
 #pragma unroll
   for (int j = 0; j < W; j++) eq = eq && (k[j] == w[j]);

@@ -32,23 +32,20 @@
 // Bound on the H100: memory bytes, but what limits it is the rate of
 // random reads: per real query its W key words, a pair per level tried and
 // one record sector where a level's bit is set; the [N, 2] results
-// written.  Three choices measured on the card (PERF.md, PR 7):
-// - an L2 persisting window over the pair array (common.cuh
-//   persisting_window), so the records' random reads do not evict it;
+// written.  Two choices measured on the card (PERF.md §6):
+// - the queries, the records and the results go under an L2 evict-first
+//   policy (common.cuh load_words_evict_first), so the pair array stays in
+//   L2;
 // - blocks take the buffer's tiles in an interleaved order (block b takes
 //   tile b * stride mod the grid, stride about a quarter of the grid and
 //   coprime to it), so the probe-heavy tiles at the head of each segment
-//   run beside the padding tiles that only stream, not before them;
-// - 1024-thread blocks: one level-table copy and zero probe per 1024
-//   queries.
-
-#include <cstdlib>
+//   run beside the padding tiles that only stream, not before them.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 1024;
+constexpr int THREADS = 256;
 
 struct Dyn {
   int64_t n;
@@ -69,29 +66,15 @@ constexpr int RECORD_WORDS = W + 2 <= 4 ? 4 : 8;
 
 // (node, offset) of the query words w: the record at the MPHF slot when its
 // key equals w, else (-1, -1).
-template <int W, int HINT>
+template <int W>
 __device__ __forceinline__ int2 lookup(const Dyn& a, const pa::Levels& lv,
                                        const uint32_t (&w)[W]) {
   constexpr int RW = RECORD_WORDS<W>;
-  const int slot = pa::mphf_slot<W, HINT & 1>(a.n_levels, lv, a.pairs, w);
+  const int slot = pa::mphf_slot<W>(a.n_levels, lv, a.pairs, w);
   int2 r = make_int2(-1, -1);
   if (slot >= 0) {
     uint32_t rec[RW];
-    if (HINT & 2) {
-      const uint64_t pol = pa::l2_evict_first();
-      const uint4* at =
-          reinterpret_cast<const uint4*>(a.records + (size_t)slot * RW);
-#pragma unroll
-      for (int i = 0; i < RW / 4; i++) {
-        const uint4 x = pa::ldg_hint(at + i, pol);
-        rec[4 * i] = x.x;
-        rec[4 * i + 1] = x.y;
-        rec[4 * i + 2] = x.z;
-        rec[4 * i + 3] = x.w;
-      }
-    } else {
-      pa::load_words<RW>(a.records + (size_t)slot * RW, rec);
-    }
+    pa::load_words_evict_first<RW>(a.records + (size_t)slot * RW, rec);
     bool eq = true;
 #pragma unroll
     for (int j = 0; j < W; j++) eq = eq && (rec[j] == w[j]);
@@ -100,27 +83,8 @@ __device__ __forceinline__ int2 lookup(const Dyn& a, const pa::Levels& lv,
   return r;
 }
 
-// TRIAL: the pre-pass's zero-key answer (one stream at a time)
-__device__ int2 g_zero;
-
 template <int W>
-__global__ void zero_key_kernel(Dyn a) {
-  __shared__ pa::Levels lv;
-  for (int i = threadIdx.x; i < a.n_levels; i += blockDim.x) {
-    lv.seed[i] = a.seeds[i];
-    lv.mask[i] = a.masks[i];
-    lv.word_off[i] = (uint32_t)a.word_offsets[i];
-    lv.key_off[i] = (uint32_t)a.key_offsets[i];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const uint32_t zw[W] = {};
-    g_zero = lookup<W, 0>(a, lv, zw);
-  }
-}
-
-template <int W, int HINT>
-__global__ void mphf_dynamic_kernel(Dyn a, int64_t stride, int zmode,
+__global__ void mphf_dynamic_kernel(Dyn a, int64_t stride,
                                     int2* __restrict__ out) {
   __shared__ pa::Levels lv;
   __shared__ int2 zero;
@@ -137,40 +101,24 @@ __global__ void mphf_dynamic_kernel(Dyn a, int64_t stride, int zmode,
   uint32_t w[W];
 #pragma unroll
   for (int j = 0; j < W; j++) w[j] = 0;
-  if (in) {
-    if ((HINT & 4) && W == 2) {
-      const uint2 q = pa::ldg_hint(reinterpret_cast<const uint2*>(a.queries) + t,
-                                   pa::l2_evict_first());
-      w[0] = q.x;
-      w[W - 1] = q.y;
-    } else {
-      pa::load_words<W>(a.queries + t * W, w);
-    }
-  }
+  if (in) pa::load_words_evict_first<W>(a.queries + t * W, w);
   uint32_t any = 0;
 #pragma unroll
   for (int j = 0; j < W; j++) any |= w[j];
   const bool padded = in && any == 0;
   int2 r = make_int2(-1, -1);
-  if (zmode == 5) {
-    if (padded) r = g_zero;
-    else if (in) r = lookup<W, HINT>(a, lv, w);
-  } else if (__syncthreads_or(padded)) {
+  if (__syncthreads_or(padded)) {
     if (threadIdx.x == 0) {
       const uint32_t zw[W] = {};
-      zero = zmode == 4 ? lookup<W, 0>(a, lv, zw) : lookup<W, HINT>(a, lv, zw);
+      zero = lookup<W>(a, lv, zw);
     }
-    if (in && !padded) r = lookup<W, HINT>(a, lv, w);
+    if (in && !padded) r = lookup<W>(a, lv, w);
     __syncthreads();
     if (padded) r = zero;
   } else if (in) {
-    r = lookup<W, HINT>(a, lv, w);
+    r = lookup<W>(a, lv, w);
   }
-  if (!in) return;
-  if (HINT & 8)
-    pa::st_hint(out + t, r, pa::l2_evict_first());
-  else
-    out[t] = r;
+  if (in) pa::store_evict_first(out + t, r);
 }
 
 int64_t gcd(int64_t x, int64_t y) {
@@ -186,8 +134,7 @@ int64_t gcd(int64_t x, int64_t y) {
 
 extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
                                const uint32_t* queries, const uint2* pairs,
-                               long long n_pairs, const uint32_t* seeds,
-                               const uint32_t* masks,
+                               const uint32_t* seeds, const uint32_t* masks,
                                const int32_t* word_offsets,
                                const int32_t* key_offsets,
                                const uint32_t* records, int32_t* out,
@@ -199,52 +146,14 @@ extern "C" int pa_mphf_dynamic(int device, long long n, int W, int n_levels,
   if (n == 0) return 0;
   const Dyn a = {n, n_levels, queries, pairs, seeds, masks, word_offsets,
                  key_offsets, records};
-  const char* tev = getenv("PA_TRIAL_K8_THREADS");
-  const int threads = tev ? atoi(tev) : THREADS;
-  const int64_t blocks = (n + threads - 1) / threads;
+  const int64_t blocks = (n + THREADS - 1) / THREADS;
   int64_t stride = blocks / 4 + 1;
   while (gcd(stride, blocks) != 1) stride++;
-  cudaLaunchAttribute attr;
-  size_t old_limit = 0;
-  e = pa::persisting_window(pairs, (size_t)n_pairs * sizeof(uint2), &attr,
-                            &old_limit);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  cudaStream_t st = (cudaStream_t)stream;
   int2* o = reinterpret_cast<int2*>(out);
-  const char* ev = getenv("PA_TRIAL_K8_HINT");
-  const int hint = ev ? atoi(ev) : 0;
-  const char* zev = getenv("PA_TRIAL_K8_ZERO");
-  const int zmode = zev ? atoi(zev) : 2;
-  e = pa::with_w(W, [&](auto w) {
-    constexpr int WW = decltype(w)::value;
-    if (zmode == 5) zero_key_kernel<WW><<<1, 64, 0, cfg.stream>>>(a);
-    const cudaError_t er =
-        hint == 2 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 2>, a,
-                                       stride, zmode, o)
-        : hint == 6 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 6>, a,
-                                         stride, zmode, o)
-        : hint == 10 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 10>,
-                                          a, stride, zmode, o)
-        : hint == 14 ? cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 14>,
-                                          a, stride, zmode, o)
-                     : cudaLaunchKernelEx(&cfg, mphf_dynamic_kernel<WW, 0>, a,
-                                          stride, zmode, o);
-    return er != cudaSuccess ? er : cudaGetLastError();
+  return (int)pa::with_w(W, [&](auto w) {
+    mphf_dynamic_kernel<decltype(w)::value>
+        <<<(unsigned)blocks, THREADS, 0, st>>>(a, stride, o);
+    return cudaGetLastError();
   });
-  if (e != cudaSuccess) return (int)e;
-  return (int)pa::trial_after_window(old_limit);
-}
-
-// TRIAL: reset the persisting lines and the set-aside.
-extern "C" int pa_l2_release(int device) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e == cudaSuccess) e = cudaCtxResetPersistingL2Cache();
-  if (e == cudaSuccess)
-    e = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, 0);
-  return (int)e;
 }

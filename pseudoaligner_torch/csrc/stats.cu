@@ -19,13 +19,12 @@
 // Bound on the H100: memory bytes, but what limits it is the rate of
 // random reads: per valid position a pair per level tried (aliens try
 // several) and, where a level's bit is set, the W-word stored key, from a
-// key array far larger than the 50 MB L2.  An L2 persisting window over
-// the pair array (common.cuh persisting_window) keeps the key reads from
-// evicting it, and 1024-thread blocks make one set of atomics per 1024
-// positions; both measured on the card (PERF.md, PR 7), as was loading
-// two levels' pairs at once, which lost.
-
-#include <cstdlib>
+// key array far larger than the 50 MB L2.  The key reads go under an L2
+// evict-first policy (common.cuh load_words_evict_first), so they do not
+// evict the pair array, and 1024-thread blocks make one set of atomics per
+// 1024 positions; both measured on the card (PERF.md §6), as were two
+// losers, loading two levels' pairs at once and an L2 persisting window
+// over the pairs.
 
 #include "common.cuh"
 
@@ -33,7 +32,7 @@ namespace {
 
 constexpr int THREADS = 1024;
 
-template <int W, int HINT>
+template <int W>
 __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv,
                              const uint32_t* __restrict__ packed,
                              const int32_t* __restrict__ lens, pa::Index ix,
@@ -48,19 +47,9 @@ __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv
       uint32_t w[W];
       pa::kmer_words<W>(pa::window_words(packed + (size_t)b * p.nw, p.nw),
                         pos, p.k, w);
-      const int slot = pa::mphf_slot<W, HINT & 1>(p.n_levels, lv, ix.pairs,
-                                                  w);
+      const int slot = pa::mphf_slot<W>(p.n_levels, lv, ix.pairs, w);
       if (slot >= 0) {
-        bool eq;
-        if ((HINT & 2) && W == 2) {
-          const uint2 k = pa::ldg_hint(
-              reinterpret_cast<const uint2*>(ix.keys) + slot,
-              pa::l2_evict_first());
-          eq = k.x == w[0] && k.y == w[W - 1];
-        } else {
-          eq = pa::key_at_slot_equals<W>(ix.keys, slot, w);
-        }
-        if (eq)
+        if (pa::key_at_slot_equals<W, true>(ix.keys, slot, w))
           hit = 1;
         else
           fp = 1;
@@ -100,7 +89,7 @@ __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv
 }  // namespace
 
 extern "C" int pa_stats(const int64_t* params, const int64_t* index,
-                        long long n_pairs, int device, const uint32_t* packed,
+                        int device, const uint32_t* packed,
                         const int32_t* lens, unsigned long long* counts,
                         void* stream) {
   cudaError_t e = cudaSetDevice(device);
@@ -110,30 +99,11 @@ extern "C" int pa_stats(const int64_t* params, const int64_t* index,
   const pa::Levels lv = pa::levels_from(params);
   const pa::Index ix = pa::index_from(index);
   const int64_t n = (int64_t)p.B * p.P;
-  const int64_t blocks = (n + THREADS - 1) / THREADS;
-  cudaLaunchAttribute attr;
-  e = pa::persisting_window(ix.pairs, (size_t)n_pairs * sizeof(uint2),
-                            &attr);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks);
-  cfg.blockDim = dim3(THREADS);
-  cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  const char* ev = getenv("PA_TRIAL_STATS_HINT");
-  const int hint = ev ? atoi(ev) : 0;
+  const int blocks = (int)((n + THREADS - 1) / THREADS);
+  cudaStream_t st = (cudaStream_t)stream;
   return (int)pa::with_w(p.W, [&](auto w) {
-    constexpr int WW = decltype(w)::value;
-    const cudaError_t er =
-        hint == 1 ? cudaLaunchKernelEx(&cfg, stats_kernel<WW, 1>, p, lv,
-                                       packed, lens, ix, counts)
-        : hint == 2 ? cudaLaunchKernelEx(&cfg, stats_kernel<WW, 2>, p, lv,
-                                         packed, lens, ix, counts)
-        : hint == 3 ? cudaLaunchKernelEx(&cfg, stats_kernel<WW, 3>, p, lv,
-                                         packed, lens, ix, counts)
-                    : cudaLaunchKernelEx(&cfg, stats_kernel<WW, 0>, p, lv,
-                                         packed, lens, ix, counts);
-    return er != cudaSuccess ? er : cudaGetLastError();
+    stats_kernel<decltype(w)::value><<<blocks, THREADS, 0, st>>>(
+        p, lv, packed, lens, ix, counts);
+    return cudaGetLastError();
   });
 }

@@ -127,7 +127,7 @@ def _load():
             lib.pa_walk.restype = _I
             lib.pa_walk.argtypes = [_P, _P, ctypes.c_float, _I] + [_P] * 12
             lib.pa_stats.restype = _I
-            lib.pa_stats.argtypes = [_P, _P, _L, _I, _P, _P, _P, _P]
+            lib.pa_stats.argtypes = [_P, _P, _I, _P, _P, _P, _P]
             lib.pa_ec_bits.restype = _I
             lib.pa_ec_bits.argtypes = [_I, _I, _I, _I] + [_P] * 7
             lib.pa_unpack_index.restype = _I
@@ -141,8 +141,7 @@ def _load():
             lib.pa_unscatter.restype = _I
             lib.pa_unscatter.argtypes = [_I, _L, _L] + [_P] * 5
             lib.pa_mphf_dynamic.restype = _I
-            lib.pa_mphf_dynamic.argtypes = [_I, _L, _I, _I, _P, _P, _L] + [
-                _P] * 7
+            lib.pa_mphf_dynamic.argtypes = [_I, _L, _I, _I] + [_P] * 9
             lib.pa_tx_counts.restype = _I
             lib.pa_tx_counts.argtypes = [_I] * 4 + [_P] * 3
             lib.pa_ec_bits_classes.restype = _I
@@ -366,9 +365,9 @@ def stats_cuda(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
     lib = _load()
     counts = torch.zeros(3, dtype=torch.int64, device=dev)
     params, ptrs = _params(meta, B), _index_ptrs(idx)
-    rc = lib.pa_stats(params.data_ptr(), ptrs.data_ptr(),
-                      idx.mphf_pairs.shape[0], dev.index, packed.data_ptr(),
-                      lens.data_ptr(), counts.data_ptr(), _stream(dev))
+    rc = lib.pa_stats(params.data_ptr(), ptrs.data_ptr(), dev.index,
+                      packed.data_ptr(), lens.data_ptr(), counts.data_ptr(),
+                      _stream(dev))
     _raise_on(lib, rc, "stats kernel")
     stats_cuda.launches += 1
     return counts
@@ -628,7 +627,6 @@ def mphf_dynamic_cuda(queries: torch.Tensor, lookup,
     out = torch.empty((N, 2), dtype=torch.int32, device=dev)
     rc = lib.pa_mphf_dynamic(
         dev.index, N, W, n_levels, queries.data_ptr(), pairs.data_ptr(),
-        pairs.shape[0],
         *(getattr(lookup, f).data_ptr() for f in (
             "seeds", "masks", "word_offsets", "key_offsets")),
         records.data_ptr(), out.data_ptr(), _stream(dev))
