@@ -100,7 +100,10 @@ Phases (every number printed is for the card named on the first line):
    the walk steps K10 and the owner-side fetch K11 must have launched),
    its rate beside phase 12's and its fetches, all_to_alls and liveness
    syncs per batch; K10 and K11 timed on one recorded walk of the middle
-   batch; (b) four loopback shards on 4 batches spread over the file
+   batch, held launch by launch (each launch of the replayed walk between
+   its own pair of events, summed per walk, so the gaps between its
+   dependent launches stay out), with the breakdown by entry and by fetch
+   width; (b) four loopback shards on 4 batches spread over the file
    (exact, one-SNP and reversed reads): every MapResult field equal to
    the replicated engine's (K2), and every K10 and K11 launch equal to
    its plain step on copies of the same inputs, tolerance 0; graph bytes
@@ -376,26 +379,34 @@ def device_ms(fn, reps: int, kernel: str | None = None):
     return (sum(us) / 1000 / reps if us else None), len(us)
 
 
-def held_ms(fn, reps: int) -> float:
-    """Milliseconds per call between CUDA events recorded right around each
+def held_each_ms(fns, reps: int) -> list[float]:
+    """Milliseconds per call of each of fns, called in order `reps` times
+    after a warm-up round, between CUDA events recorded right around each
     call while the device is held busy (torch.cuda._sleep) during the
     host's preparation of the call, so that the events bracket the call's
     device work and not the wrapper's host time."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(reps):
-        torch.cuda._sleep(2_000_000)  # ~1 ms: outlasts the host work
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    for fn in fns:
         fn()
-        end.record()
-        pairs.append((start, end))
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+    pairs = [[] for _ in fns]
+    for _ in range(reps):
+        for fn, got in zip(fns, pairs):
+            torch.cuda._sleep(2_000_000)  # ~1 ms: outlasts the host work
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            got.append((start, end))
+    torch.cuda.synchronize()
+    return [sum(a.elapsed_time(b) for a, b in got) / reps for got in pairs]
+
+
+def held_ms(fn, reps: int) -> float:
+    """held_each_ms of one function."""
+    return held_each_ms([fn], reps)[0]
 
 
 def busy_us(events) -> float:
@@ -884,23 +895,32 @@ def main(argv=None) -> int:
 
     ms, traced_ms = {}, {}
 
-    def time_pair(name, f, reps, sym, n=n_b, per_call=1):
+    def time_pair(name, f, reps, sym, n=n_b, per_call=1, each=None):
         """Time f over rotating batches by both methods: ms[name] is the
         held-event time, which every row has, so rows compare by one
         method; traced_ms[name] is the trace's device time with the
         launches of `sym` it saw and the per_call * reps it should have
-        (a trace of a short window may drop launches)."""
+        (a trace of a short window may drop launches).  With `each`, the
+        calls f makes one by one, the held time is theirs, each timed
+        alone and summed: the gaps between f's launches stay out of it.
+        Returns the held time of each of `each`."""
         span = span_ms(rotating(f, n), reps)
         dev_ms, seen = device_ms(rotating(f, n), reps, sym)
-        held = held_ms(rotating(f, n), reps)
+        if each is None:
+            per = [held_ms(rotating(f, n), reps)]
+            how = "CUDA events around each call"
+        else:
+            per = held_each_ms(each, reps)
+            how = f"CUDA events around each of its {len(each)} calls, summed"
+        held = sum(per)
         what = (f"kernel {sym}, {seen} launches seen of {reps * per_call}"
                 if sym else f"all device activity, {seen} activities")
         say(f"ms per {BATCH}-read batch, {name}: device {dev_ms} ({what}, "
-            f"traced), held {held} (CUDA events around each call, device "
-            f"held busy meanwhile), span {span} (back-to-back calls, CUDA "
-            "events)")
+            f"traced), held {held} ({how}, device held busy meanwhile), "
+            f"span {span} (back-to-back calls, CUDA events)")
         ms[name] = held
         traced_ms[name] = (dev_ms, seen, reps * per_call if sym else None)
+        return per
 
     def serving_report(al, mode: str):
         """Phase 4 for one engine: the device step alone, the serving emit
@@ -1771,23 +1791,51 @@ def main(argv=None) -> int:
     bounds["gfetch"] = bound([tuple(sum(w[i] for w in fetch_works)
                                     for i in (0, 1))])
 
+    def replayed(steps, which):
+        """The recorded calls of K10's steps (which = "walk") or K11's
+        serves, in order, each as a function of no arguments: the walk's
+        replay repeats the recorded walk, and every serve is a pure
+        function of its recorded requests."""
+        serve = which == "serve"
+        return [(lambda f=getattr(steps, name), a=a: f(*a))
+                for name, a in calls if (name == "serve") == serve]
+
     def replay(steps, which):
+        fns = replayed(steps, which)
+
         def run(_i):
-            for name, a in calls:
-                if (name == "serve") == (which == "serve"):
-                    getattr(steps, name)(*a)
+            for fn in fns:
+                fn()
         return run
 
-    time_pair("gwalk", replay(ks, "walk"), n_b, "gwalk_", 1,
-              per_call=n_walk)
-    time_pair("gwalk_plain", replay(gw.PLAIN_STEPS, "walk"), 2, None, 1)
-    time_pair("gfetch", replay(ks, "serve"), n_b, "gfetch_kernel", 1,
-              per_call=n_fetch)
-    time_pair("gfetch_plain", replay(gw.PLAIN_STEPS, "serve"), 2, None, 1)
+    # held: each launch under its own event pair, summed per walk
+    walk_names = [n for n, _ in calls if n != "serve"]
+    serve_kind = ["window" if a[5] else "rows" for n, a in calls
+                  if n == "serve"]
+    per_launch = {}
+    for key, steps, reps in (("", ks, n_b), ("_plain", gw.PLAIN_STEPS, 2)):
+        per_launch["gwalk" + key] = time_pair(
+            "gwalk" + key, replay(steps, "walk"), reps,
+            "gwalk_" if not key else None, 1, per_call=n_walk,
+            each=replayed(steps, "walk"))
+        per_launch["gfetch" + key] = time_pair(
+            "gfetch" + key, replay(steps, "serve"), reps,
+            "gfetch_" if not key else None, 1, per_call=n_fetch,
+            each=replayed(steps, "serve"))
+    for key in ("gwalk", "gwalk_plain"):
+        say(f"[graph] {key} held ms by launch: " + ", ".join(
+            f"{n} {t}" for n, t in zip(walk_names, per_launch[key])))
+    for key in ("gfetch", "gfetch_plain"):
+        by = {k: [t for kind, t in zip(serve_kind, per_launch[key])
+                  if kind == k] for k in ("window", "rows")}
+        say(f"[graph] {key} held ms by launch: " + ", ".join(
+            f"{kind} {t}" for kind, t in zip(serve_kind, per_launch[key]))
+            + "; " + ", ".join(f"{k} {len(v)} launches, {sum(v)} in all"
+                               for k, v in by.items()))
     say(f"[graph] one serving walk of batch {mid}: {n_walk} K10 launches "
-        f"({', '.join(n for n, _ in calls if n != 'serve')}), {n_fetch} K11 "
-        f"launches; ms per walk K10 {ms['gwalk']} (bound {bounds['gwalk']}),"
-        f" K11 {ms['gfetch']} (bound {bounds['gfetch']})")
+        f"({', '.join(walk_names)}), {n_fetch} K11 launches; held ms per "
+        f"walk, each launch timed alone: K10 {ms['gwalk']} (bound "
+        f"{bounds['gwalk']}), K11 {ms['gfetch']} (bound {bounds['gfetch']})")
     del calls, kpg
 
     # (b) four loopback shards on the batches spread over the file (exact,

@@ -289,6 +289,14 @@ __device__ __forceinline__ void store_evict_first(int2* p, int2 v) {
                : "memory");
 }
 
+// One 16-byte store under the evict-first policy (K11's responses).
+__device__ __forceinline__ void store_evict_first(int4* p, int4 v) {
+  asm volatile("st.global.L2::cache_hint.v4.s32 [%0], {%1, %2, %3, %4}, %5;"
+               :: "l"(p), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w),
+                  "l"(evict_first_policy())
+               : "memory");
+}
+
 // N consecutive words from p into registers, in 16-byte loads where N is a
 // multiple of 4 (the caller keeps p 16-byte aligned then), else 8-byte or
 // 4-byte ones.

@@ -179,10 +179,16 @@ def _check(name, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _check_aligned(name, t: torch.Tensor) -> None:
-    """The kernels read index rows in 16-byte loads."""
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data not 16-byte aligned")
+def _check_aligned(name, t: torch.Tensor, nbytes: int = 16) -> None:
+    """The kernels read index rows, and K10 and K11 their state, buffers
+    and responses, in 16-byte accesses (requests in 8-byte ones)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: data not {nbytes}-byte aligned")
+
+
+def _require_cuda(t: torch.Tensor) -> None:
+    if not t.is_cuda:
+        raise ValueError("the CUDA kernels take CUDA tensors")
 
 
 def _check_batch(meta: MapMeta, packed, lens):
@@ -672,8 +678,7 @@ def _gwalk_check(meta: MapMeta, kmeta, st, buf=None, reqs=()):
     geo): geo the {S, Nb, WW} launch vector."""
     from ..parallel.graph_walk import NSTATE, window_words
 
-    if not st.is_cuda:
-        raise ValueError("the CUDA kernels take CUDA tensors")
+    _require_cuda(st)
     if meta.lazy_seeds or meta.distinct_cap > MAX_DISTINCT_CAP:
         raise ValueError("the graph-sharded walk takes eager seeds and "
                          f"distinct_cap <= {MAX_DISTINCT_CAP}")
@@ -683,10 +688,13 @@ def _gwalk_check(meta: MapMeta, kmeta, st, buf=None, reqs=()):
                          f"{meta.max_nodes}, positions {meta.n_positions}")
     dev, B = st.device, st.shape[0]
     _check("st", st, torch.int32, (B, NSTATE), dev)
+    _check_aligned("st", st)
     if buf is not None:
         _check("buf", buf, torch.int32, (B, meta.max_nodes, 2), dev)
+        _check_aligned("buf", buf)
     for r in reqs:
         _check("req", r, torch.int32, (S, B, 2), dev)
+        _check_aligned("req", r, 8)
     geo = torch.tensor([S, Nb, window_words(meta)], dtype=torch.int64)
     return B, dev, geo
 
@@ -721,6 +729,7 @@ def gwalk_left_a_cuda(meta: MapMeta, kmeta, packed, back, st, req) -> None:
            dev)
     _check("back", back, torch.int32, (kmeta.n_shards, B, 12 + int(geo[2])),
            dev)
+    _check_aligned("back", back)
     lib = _load()
     params = _params(meta, B)
     rc = lib.pa_gwalk_left_a(params.data_ptr(), geo.data_ptr(), dev.index,
@@ -738,6 +747,7 @@ def gwalk_left_b_cuda(meta: MapMeta, kmeta, back, st, buf, req) -> None:
     writes the next left requests."""
     B, dev, geo = _gwalk_check(meta, kmeta, st, buf, (req,))
     _check("back", back, torch.int32, (kmeta.n_shards, B, 12), dev)
+    _check_aligned("back", back)
     lib = _load()
     params = _params(meta, B)
     rc = lib.pa_gwalk_left_b(params.data_ptr(), geo.data_ptr(), dev.index,
@@ -761,6 +771,7 @@ def gwalk_forward_cuda(meta: MapMeta, kmeta, packed, lens, nh3, back, st,
     _check("nh3", nh3, torch.int32, (B, meta.n_positions, 3), dev)
     _check("back", back, torch.int32, (kmeta.n_shards, B, 12 + int(geo[2])),
            dev)
+    _check_aligned("back", back)
     lib = _load()
     params = _params(meta, B)
     rc = lib.pa_gwalk_forward(params.data_ptr(), geo.data_ptr(), dev.index,
@@ -818,8 +829,7 @@ def gfetch_cuda(kmeta, me: int, recv, node_rows, pool, ww: int):
     `me`, its block's node_rows [Nb, 12] int32 and flat pool [R] int32
     (uint32 bit patterns) -> responses [S, B, 12 + ww] int32 (see
     csrc/gfetch.cu); ww = 0 fetches rows alone."""
-    if not recv.is_cuda:
-        raise ValueError("the CUDA kernels take CUDA tensors")
+    _require_cuda(recv)
     dev = recv.device
     S, Nb = kmeta.n_shards, kmeta.node_block
     B = recv.shape[1]
@@ -828,6 +838,9 @@ def gfetch_cuda(kmeta, me: int, recv, node_rows, pool, ww: int):
     _check("recv", recv, torch.int32, (S, B, 2), dev)
     _check("node_rows", node_rows, torch.int32, (Nb, 12), dev)
     _check("pool", pool, torch.int32, (pool.shape[0],), dev)
+    _check_aligned("recv", recv, 8)
+    _check_aligned("node_rows", node_rows)
+    _check_aligned("pool", pool)
     lib = _load()
     out = torch.empty((S, B, 12 + ww), dtype=torch.int32, device=dev)
     rc = lib.pa_gfetch(dev.index, S * B, me, Nb, ww, pool.shape[0],

@@ -21,6 +21,7 @@ conftest:
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -384,6 +385,68 @@ def test_index_arrays_must_be_aligned():
         kernels._check_aligned("node_row", whole[1:])
 
 
+def test_graph_walk_buffers_must_be_aligned(monkeypatch):
+    """K10 and K11 move state rows, push buffers, responses, node rows and
+    pool words in 16-byte accesses and requests in 8-byte ones: each
+    wrapper refuses a tensor that does not start there, before it loads
+    the kernels, and lets aligned ones through to the launch."""
+    from pseudoaligner_torch.parallel import graph_walk as gw
+
+    class Launched(Exception):
+        pass
+
+    def no_load():
+        raise Launched
+
+    monkeypatch.setattr(kernels, "_require_cuda", lambda t: None)
+    monkeypatch.setattr(kernels, "_load", no_load)
+    meta = mk.MapMeta(k=20, read_len=60, allowed_mismatches=2,
+                      left_extend_fraction=0.2, max_nodes=7,
+                      cuckoo_mask=1023, distinct_cap=3, lazy_seeds=False)
+    S, B, M, ww, P = 2, 8, 7, gw.window_words(meta), meta.n_positions
+    km = types.SimpleNamespace(n_shards=S, node_block=10)
+
+    def z(*shape, off=0):
+        """A zero int32 tensor of `shape` starting `off` words into a
+        storage that starts on 16 bytes."""
+        n = int(np.prod(shape))
+        return torch.zeros(n + 4, dtype=torch.int32)[off:off + n].view(shape)
+
+    # (tensor, the bytes its accesses need, the call with it `off` words in)
+    cases = [
+        ("st", 16, lambda o: kernels.gwalk_finish_cuda(
+            meta, km, z(B, 12, off=o), z(B, M, 2))),
+        ("buf", 16, lambda o: kernels.gwalk_left_b_cuda(
+            meta, km, z(S, B, 12), z(B, 12), z(B, M, 2, off=o), z(S, B, 2))),
+        ("req", 8, lambda o: kernels.gwalk_init_cuda(
+            meta, km, z(B, P, 3), z(B), z(B, 12), z(B, M, 2),
+            z(S, B, 2, off=o), z(S, B, 2))),
+        ("back", 16, lambda o: kernels.gwalk_forward_cuda(
+            meta, km, z(B, 4), z(B), z(B, P, 3), z(S, B, 12 + ww, off=o),
+            z(B, 12), z(B, M, 2), z(S, B, 2))),
+        ("back", 16, lambda o: kernels.gwalk_left_a_cuda(
+            meta, km, z(B, 4), z(S, B, 12 + ww, off=o), z(B, 12),
+            z(S, B, 2))),
+        ("recv", 8, lambda o: kernels.gfetch_cuda(
+            km, 1, z(S, B, 2, off=o), z(10, 12), z(64), ww)),
+        ("node_rows", 16, lambda o: kernels.gfetch_cuda(
+            km, 1, z(S, B, 2), z(10, 12, off=o), z(64), ww)),
+        ("pool", 16, lambda o: kernels.gfetch_cuda(
+            km, 1, z(S, B, 2), z(10, 12), z(64, off=o), ww)),
+    ]
+    for name, nbytes, call in cases:
+        with pytest.raises(Launched):
+            call(0)
+        with pytest.raises(ValueError, match=f"{name}: data not {nbytes}-"):
+            call(1)
+        if nbytes == 16:
+            with pytest.raises(ValueError, match=f"{name}: data not 16-"):
+                call(2)
+        else:
+            with pytest.raises(Launched):
+                call(2)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """No toolchain: the build raises (and the CUDA path with it) instead
     of falling back."""
@@ -577,6 +640,118 @@ def test_graph_walk_kernels_match_plain_on_cuda(S, shape):
         args = (kp.meta, kp.dev, classes, got.n_nodes, got.mapped)
         assert torch.equal(kernels.ec_bits_classes_cuda(*args),
                            mk.ec_bitset_intersect_classes(*args))
+
+
+def _gfetch_edge_case(S, B, ww, device):
+    """A block of Nb = 40 node rows whose starts run to the pool's last
+    words, and requests [S, B, 2] for shard me = S - 1: no request (-1),
+    the block's first and last nodes, nodes outside it (clipped into it),
+    deltas that put the window start below 0 (clamped to 0) and windows
+    that reach the pool's last word and beyond -> (kmeta, me, recv,
+    node_rows, pool) on `device`."""
+    import types
+
+    rng = np.random.default_rng(1000 * S + 10 * B + ww)
+    Nb, R, me = 40, 96, S - 1
+    rows = rng.integers(-2**31, 2**31, (Nb, 12), dtype=np.int64).astype(
+        np.int32)
+    rows[:, 0] = rng.integers(0, 16 * R, Nb)
+    rows[-3:, 0] = 16 * R - np.array([1, 9, 16 * (ww + 1)])
+    pool = rng.integers(-2**31, 2**31, R, dtype=np.int64).astype(np.int32)
+    lo = me * Nb
+    nodes = np.concatenate([[-1, lo, lo + Nb - 1, lo - 1, lo + Nb + 5,
+                             -7, lo + Nb - 2, lo + Nb - 3],
+                            rng.integers(lo - 5, lo + Nb + 5, S * B)])
+    deltas = np.concatenate([[0, -10**6, 17, 0, -5, 3, 0, 15],
+                             rng.integers(-300, 300, S * B)])
+    recv = np.stack([nodes, deltas], -1)[:S * B].astype(np.int32)
+    if S * B > 1:  # a request that sits on the pool's last word
+        recv[1] = (lo + Nb - 1, 0)
+    recv = recv.reshape(S, B, 2)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (types.SimpleNamespace(n_shards=S, node_block=Nb), me, t(recv),
+            t(rows), t(pool))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ww", [0, 4, 19])
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("B", [1, 33, 129])
+def test_gfetch_edges_match_plain_on_cuda(B, S, ww):
+    """K11 against its plain version, tolerance 0, at every response width
+    kind (rows only, a multiple of 4 words, and 31 words, whose 16-byte
+    pieces straddle slots), at batch sizes around its blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pseudoaligner_torch.parallel import graph_walk as gw
+
+    args = _gfetch_edge_case(S, B, ww, "cuda")
+    before = kernels.gfetch_cuda.launches
+    got = kernels.gfetch_cuda(*args, ww)
+    want = gw.serve_fetch(*args, ww)
+    torch.cuda.synchronize()
+    assert kernels.gfetch_cuda.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def _graph_edge_case(S, shape, device):
+    """_graph_case's engines at b = 421 rows per shard (three whole blocks
+    of 128 lanes and 37 more), rows 128-383 of each shard empty (two
+    whole blocks of inactive lanes), in the serving shape (max_nodes 7)
+    or the full output at max_nodes 192."""
+    from pseudoaligner_torch.parallel import sharded_index as si
+    from pseudoaligner_torch.parallel.mesh import make_mesh
+
+    k, L = 20, 64
+    kw = (SHAPES["serving"][2] if shape == "serving" else
+          dict(distinct_cap=0, max_nodes=192))
+    image, reads = _data(np.random.default_rng(k + L + S), k, L)
+    b = 3 * 128 + 37
+    codes = np.zeros((S * b, L), np.int32)
+    lens = np.zeros(S * b, np.int32)
+    j = 0
+    for row in range(S * b):
+        if 128 <= row % b < 384:
+            continue
+        w = reads[j % len(reads)]
+        j += 1
+        codes[row, : len(w)] = w
+        lens[row] = len(w)
+    cfg = AlignerConfig(k=k, max_read_len=L, batch_size=S * b,
+                        **dict(kw, lazy_seeds=False))
+    made = [si.KmerPartitionedAligner(
+        image, cfg, make_mesh(S, loopback=True, device=device),
+        shard_graph=sg) for sg in (True, False)]
+    return made[0], made[1], codes, lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("shape", ["serving", "full_192"])
+def test_graph_walk_kernel_edges_match_plain_on_cuda(S, shape):
+    """Every K10 and K11 launch against its plain step through
+    paired_steps, tolerance 0, at a per-shard batch that is no multiple of
+    K10's block and holds whole blocks of empty reads; the MapResult
+    equals the replicated engine's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pseudoaligner_torch.parallel import graph_walk as gw
+
+    kp, rep, codes, lens = _graph_edge_case(S, shape, "cuda")
+    err = {}
+    kp.walk_steps = gw.paired_steps(gw.kernel_steps(), gw.PLAIN_STEPS, err)
+    got, counts = kp.map_batch(codes, lens)
+    want, want_counts = rep.map_batch(codes, lens)
+    torch.cuda.synchronize()
+    assert set(err) == set(gw.Steps._fields) and not any(err.values()), err
+    for f in want._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.uint32
+                           else a, b.view(torch.int32)
+                           if b.dtype == torch.uint32 else b), f
+    assert torch.equal(counts, want_counts)
 
 
 def test_graph_walk_plain_steps_on_cpu():
