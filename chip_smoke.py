@@ -103,7 +103,8 @@ Phases (every number printed is for the card named on the first line):
    batch, held launch by launch (each launch of the replayed walk between
    its own pair of events, summed per walk, so the gaps between its
    dependent launches stay out), with the breakdown by entry and by fetch
-   width; (b) four loopback shards on 4 batches spread over the file
+   width and a one-thread kernel's time by the same method (what any
+   launch costs); (b) four loopback shards on 4 batches spread over the file
    (exact, one-SNP and reversed reads): every MapResult field equal to
    the replicated engine's (K2), and every K10 and K11 launch equal to
    its plain step on copies of the same inputs, tolerance 0; graph bytes
@@ -1832,10 +1833,13 @@ def main(argv=None) -> int:
             f"{kind} {t}" for kind, t in zip(serve_kind, per_launch[key]))
             + "; " + ", ".join(f"{k} {len(v)} launches, {sum(v)} in all"
                                for k, v in by.items()))
+    # what one launch costs by this method whatever it does
+    floor = held_ms(lambda: torch.cuda._sleep(1), n_b)
     say(f"[graph] one serving walk of batch {mid}: {n_walk} K10 launches "
         f"({', '.join(walk_names)}), {n_fetch} K11 launches; held ms per "
         f"walk, each launch timed alone: K10 {ms['gwalk']} (bound "
-        f"{bounds['gwalk']}), K11 {ms['gfetch']} (bound {bounds['gfetch']})")
+        f"{bounds['gwalk']}), K11 {ms['gfetch']} (bound {bounds['gfetch']});"
+        f" a one-thread kernel holds {floor} per launch")
     del calls, kpg
 
     # (b) four loopback shards on the batches spread over the file (exact,

@@ -1,9 +1,10 @@
 // Shared device code of the mapping kernels (seed.cu, walk.cu, stats.cu,
-// route.cu, mphfdyn.cu, gwalk.cu): launch parameters, 2-bit base access,
-// the k-mer hash, k-mer words cut from packed words, the three seed index
-// probes (cuckoo, bucket1, MPHF with a stored-key verify), the backward
-// pass of the next-hit table with the tile store around it, and the
-// walk's word-wise segment compare and output encoding.
+// route.cu, mphfdyn.cu, gwalk.cu, gfetch.cu): launch parameters, 2-bit
+// base access, the k-mer hash, k-mer words cut from packed words, the
+// three seed index probes (cuckoo, bucket1, MPHF with a stored-key
+// verify), L2 evict-first loads and stores, the backward pass of the
+// next-hit table with the tile store around it, and the walk's word-wise
+// segment compare and output encoding.
 //
 // Layouts (see pseudoaligner_torch/ops/map_kernel.py):
 //   packed      [B, nw] uint32, base i of a read at bits 2*(i%16) of word i/16

@@ -192,8 +192,7 @@ def _require_cuda(t: torch.Tensor) -> None:
 
 
 def _check_batch(meta: MapMeta, packed, lens):
-    if not packed.is_cuda:
-        raise ValueError("the CUDA kernels take CUDA tensors")
+    _require_cuda(packed)
     dev = packed.device
     if meta.n_positions < 1:
         raise ValueError(f"batch width {meta.read_len} below k={meta.k}")
@@ -387,8 +386,7 @@ def ec_bits_cuda(meta: MapMeta, idx: DeviceIndex, nodes: torch.Tensor,
     """K4: a full-output walk's nodes [B, max_nodes] int32, n_nodes [B]
     int32 and mapped [B] bool -> ec_bits [B, TW] int32 (uint32 bit
     patterns; see csrc/ecbits.cu)."""
-    if not nodes.is_cuda:
-        raise ValueError("the CUDA kernels take CUDA tensors")
+    _require_cuda(nodes)
     dev, TW = nodes.device, meta.tx_words
     B, M = nodes.shape
     if TW < 1 or M < 1:
@@ -421,8 +419,7 @@ def ec_bits_classes_cuda(meta: MapMeta, idx: DeviceIndex,
     (-1 for empty slots) of a graph-sharded walk in place of its node ids,
     n_nodes [B] int32, mapped [B] bool -> ec_bits [B, TW] int32, as
     map_kernel.ec_bitset_intersect_classes.  Reads no node_row."""
-    if not classes.is_cuda:
-        raise ValueError("the CUDA kernels take CUDA tensors")
+    _require_cuda(classes)
     dev, TW = classes.device, meta.tx_words
     B, M = classes.shape
     if TW < 1 or M < 1:
@@ -452,8 +449,7 @@ def unpack_index_cuda(packed: dict, cfg: PackCfg):
     or the plain `cuckoo` rows) -> (cuckoo [S/4, 4W], cuckoo_vals [2S])
     int32, as map_kernel.unpack_index (see csrc/unpack.cu)."""
     vlo = packed["vals_lo"]
-    if not vlo.is_cuda:
-        raise ValueError("the CUDA kernels take CUDA tensors")
+    _require_cuda(vlo)
     dev, S, W = vlo.device, cfg.S, cfg.W
     if not 1 <= cfg.node_bits <= 30 or not 1 <= cfg.off_bits <= 32:
         raise ValueError(f"field widths {cfg.node_bits}, {cfg.off_bits}")
@@ -491,8 +487,7 @@ def next_hit_cuda(seed_node: torch.Tensor, seed_off: torch.Tensor,
     """K1's next_hit entry: seed tables seed_node / seed_off [B, P] int32
     (-1 where a position has no seed), lens [B] int32 -> nh3 [B, P, 3]
     int32, as map_kernel.next_hit_table (see csrc/seed.cu)."""
-    if not seed_node.is_cuda:
-        raise ValueError("the CUDA kernels take CUDA tensors")
+    _require_cuda(seed_node)
     dev = seed_node.device
     B, P = seed_node.shape
     _check("seed_node", seed_node, torch.int32, (B, P), dev)
@@ -514,8 +509,7 @@ next_hit_cuda.launches = 0
 def pack_reads_cuda(codes: torch.Tensor) -> torch.Tensor:
     """K6: base codes [B, L] int32 -> packed [B, ceil(L/16)] int32 (uint32
     bit patterns), as map_kernel.pack_reads_device (see csrc/pack.cu)."""
-    if not codes.is_cuda:
-        raise ValueError("the CUDA kernels take CUDA tensors")
+    _require_cuda(codes)
     dev = codes.device
     B, L = codes.shape
     _check("codes", codes, torch.int32, (B, L), dev)
@@ -540,8 +534,7 @@ def route_cuda(packed: torch.Tensor, lens: torch.Tensor, k: int,
     (send_q [S, CAP, W] int32, send_src [S, CAP] int32, overflow [] int32,
     dropped [B] bool), as sharded_index.route_queries (see
     csrc/route.cu)."""
-    if not packed.is_cuda:
-        raise ValueError("the CUDA kernels take CUDA tensors")
+    _require_cuda(packed)
     dev = packed.device
     B = packed.shape[0]
     P = read_len - k + 1
@@ -579,8 +572,7 @@ def unscatter_cuda(back: torch.Tensor, src: torch.Tensor, B: int, P: int):
     their flat sources src [N] int32 (-1 for unused slots) -> seed_node,
     seed_off [B, P] int32, -1 where nothing returned, as
     sharded_index.unscatter_seeds (see csrc/route.cu)."""
-    if not back.is_cuda:
-        raise ValueError("the CUDA kernels take CUDA tensors")
+    _require_cuda(back)
     dev, N = back.device, back.shape[0]
     _check("back", back, torch.int32, (N, 2), dev)
     _check("src", src, torch.int32, (N,), dev)
@@ -607,8 +599,7 @@ def mphf_dynamic_cuda(queries: torch.Tensor, lookup,
     key words, node and offset, all int32) -> [N, 2] int32 (node, offset),
     -1 on a miss, as mphf_lookup.dynamic_verified_lookup (see
     csrc/mphfdyn.cu)."""
-    if not queries.is_cuda:
-        raise ValueError("the CUDA kernels take CUDA tensors")
+    _require_cuda(queries)
     dev = queries.device
     N, W = queries.shape
     if not 0 < n_levels <= MAX_LEVELS:
@@ -648,8 +639,7 @@ def tx_counts_cuda(ec_bits: torch.Tensor, n_tx: int) -> torch.Tensor:
     """K9: EC bitsets [B, TW] int32 (uint32 bit patterns) -> counts [n_tx]
     int32, counts[t] = reads with bit t set, as mesh.tx_compat_counts (see
     csrc/txcounts.cu)."""
-    if not ec_bits.is_cuda:
-        raise ValueError("the CUDA kernels take CUDA tensors")
+    _require_cuda(ec_bits)
     dev = ec_bits.device
     B, TW = ec_bits.shape
     if not 0 <= n_tx <= 32 * TW:
