@@ -180,8 +180,9 @@ def _check(name, t: torch.Tensor, dtype, shape, device) -> None:
 
 
 def _check_aligned(name, t: torch.Tensor, nbytes: int = 16) -> None:
-    """The kernels read index rows, and K10 and K11 their state, buffers
-    and responses, in 16-byte accesses (requests in 8-byte ones)."""
+    """The kernels read index rows, K10 and K11 their state, buffers and
+    responses, and K4 its output, in 16-byte accesses (requests in 8-byte
+    ones)."""
     if t.data_ptr() % nbytes:
         raise ValueError(f"{name}: data not {nbytes}-byte aligned")
 
@@ -400,6 +401,7 @@ def ec_bits_cuda(meta: MapMeta, idx: DeviceIndex, nodes: torch.Tensor,
            dev)
     lib = _load()
     out = torch.empty((B, TW), dtype=torch.int32, device=dev)
+    _check_aligned("out", out)  # written in 16-byte pieces
     rc = lib.pa_ec_bits(dev.index, B, M, TW, nodes.data_ptr(),
                         n_nodes.data_ptr(), mapped.data_ptr(),
                         idx.node_row.data_ptr(), idx.ec_bits.data_ptr(),
@@ -431,6 +433,7 @@ def ec_bits_classes_cuda(meta: MapMeta, idx: DeviceIndex,
            dev)
     lib = _load()
     out = torch.empty((B, TW), dtype=torch.int32, device=dev)
+    _check_aligned("out", out)
     rc = lib.pa_ec_bits_classes(dev.index, B, M, TW, classes.data_ptr(),
                                 n_nodes.data_ptr(), mapped.data_ptr(),
                                 idx.ec_bits.data_ptr(), out.data_ptr(),
@@ -638,7 +641,8 @@ mphf_dynamic_cuda.launches = 0
 def tx_counts_cuda(ec_bits: torch.Tensor, n_tx: int) -> torch.Tensor:
     """K9: EC bitsets [B, TW] int32 (uint32 bit patterns) -> counts [n_tx]
     int32, counts[t] = reads with bit t set, as mesh.tx_compat_counts (see
-    csrc/txcounts.cu)."""
+    csrc/txcounts.cu).  The kernel reads 4-byte words, so any contiguous
+    tensor goes, a row slice of a larger one too."""
     _require_cuda(ec_bits)
     dev = ec_bits.device
     B, TW = ec_bits.shape

@@ -119,6 +119,44 @@ def test_map_result_ec_bits_match_reference(data, name):
             name == "k20_nodes3_overflow")
 
 
+def test_map_result_ec_bits_past_the_kept_classes_match_reference():
+    """Reads crossing more distinct classes than K4 keeps on chip per read
+    (16, csrc/ecbits.cu's C): a base transcript and 24 copies of it, each
+    with one substitution, 3 bases after the last one, so that the class of
+    the base's k-mers changes every few positions; reads of the base and
+    of the copies at max_nodes 120 and the full output.  The port's
+    MapResult, its ec_bits included, equals the reference's."""
+    rng = np.random.default_rng(1717)
+    base = rng.integers(0, 4, 300).astype(np.uint8)
+    seqs = [base]
+    for j in range(24):
+        s = base.copy()
+        s[100 + 3 * j] = (s[100 + 3 * j] + 1) % 4
+        seqs.append(s)
+    names = [f"t{j}" for j in range(len(seqs))]
+    image = build(seqs, names, {n: "G" for n in names}, k=20)
+    L = 96
+    reads = [(f"r{i}", seqs[i % 5][st:st + L].copy())
+             for i, st in enumerate(range(40, 200, 4))]
+    cfg = AlignerConfig(k=20, batch_size=len(reads), max_read_len=L,
+                        distinct_cap=0, left_compact=0.0, pool_overlap=False,
+                        max_nodes=120)
+    dev_np, meta = ref_mk.device_index_from_image(image, cfg)
+    codes, lens = make_batch(reads, len(reads), L)
+    packed = ref_mk.pack_reads_host(codes)
+    ref = _MAP_STEP_JIT(meta, dev_np, packed, lens)
+    idx, pmeta = port_index(dev_np, meta)
+    got = mk.map_batch_packed(pmeta, idx,
+                              torch.from_numpy(packed.view(np.int32)),
+                              torch.from_numpy(lens))
+    assert_results_equal(ref, got, "past_the_kept_classes")
+    ec = idx.node_row[got.nodes.clamp(min=0).long(), 3]
+    n_cls = [len(set(ec[i][got.nodes[i] >= 0].tolist()))
+             for i in range(len(reads))]
+    assert max(n_cls) > 16 and got.mapped.all()
+    assert (got.n_nodes <= 120).all()
+
+
 def test_ec_bitset_intersect_semantics():
     """The plain intersection from its definition: AND over the distinct
     classes of the first min(n_nodes, max_nodes) nodes, all-ones start,

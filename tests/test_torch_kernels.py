@@ -257,6 +257,137 @@ def test_ec_bits_kernel_matches_plain_on_cuda(M, TW):
     assert (got != 0).any() and (got == 0).all(dim=1).any()
 
 
+EC_KEPT = 16  # csrc/ecbits.cu's C: distinct classes a read keeps on chip
+EC_READS = 8  # csrc/ecbits.cu's R: reads per block
+
+
+def _ec_edge_case(entry, B, TW, device, M=120):
+    """K4 inputs that reach every branch of either entry ("nodes" or
+    "classes"), one kind of read per row (the first eight rows one of each,
+    the rest drawn): 0 a few classes with -1 holes; 1 M distinct classes
+    (more than EC_KEPT: the overflow path); 2 mapped, every id -1; 3
+    n_nodes above M, 20 classes; 4 n_nodes below 0; 5 unmapped; 6 and 7
+    exactly EC_KEPT and EC_KEPT + 1 classes spread over every chunk of 32
+    ids.  Classes 0-149 have dense random bitsets, 150-299 all-ones bar
+    about one bit in 256, so that an AND over M of them stays nonzero.
+    Node n has class n % 300.  -> (kernel wrapper, plain function, args,
+    kinds)."""
+    rng = np.random.default_rng(1000 * B + TW)
+    n_ecs = 300
+    node_row = np.zeros((3 * n_ecs, 12), np.int32)
+    node_row[:, 3] = np.arange(3 * n_ecs) % n_ecs
+    dense = rng.integers(0, 2**32, (n_ecs, TW), dtype=np.uint64)
+    dense |= rng.integers(0, 2**32, (n_ecs, TW), dtype=np.uint64)
+    holes = np.full((n_ecs, TW), 2**32 - 1, np.uint64)
+    for _ in range(8):
+        holes &= rng.integers(0, 2**32, (n_ecs, TW), dtype=np.uint64)
+    bits = np.where(np.arange(n_ecs)[:, None] < 150, dense, ~holes
+                    & np.uint64(2**32 - 1)).astype(np.uint32)
+    nodes = np.full((B, M), -1, np.int32)
+    n_nodes = np.full(B, M, np.int32)
+    mapped = np.ones(B, bool)
+    kinds = [b if b < 8 else int(rng.integers(8)) for b in range(B)]
+    for b, kind in enumerate(kinds):
+        if kind == 2:
+            continue
+        if kind == 1:
+            cls = 150 + rng.permutation(150)[:M]
+        else:
+            n_cls = {0: int(rng.integers(1, 4)), 3: 20, 6: EC_KEPT,
+                     7: EC_KEPT + 1}.get(kind, 3)
+            pick = rng.permutation(150)[:n_cls] + (0 if kind in (0, 4, 5)
+                                                  else 150)
+            cls = pick[np.r_[np.arange(n_cls),
+                             rng.integers(0, n_cls, M - n_cls)]]
+            cls = rng.permutation(cls)
+        nodes[b] = cls + n_ecs * rng.integers(0, 3, M)
+        if kind == 0:
+            n_nodes[b] = rng.integers(1, M + 1)
+            nodes[b, rng.random(M) < 0.05] = -1
+            nodes[b, n_nodes[b]:] = -1
+        n_nodes[b] = {3: M + 7, 4: -3}.get(kind, n_nodes[b])
+        mapped[b] = kind != 5
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    idx = mk.DeviceIndex(**{f.name: torch.zeros(0, dtype=torch.int32,
+                                                device=device)
+                            for f in dataclasses.fields(mk.DeviceIndex)})
+    idx.node_row = t(node_row)
+    idx.ec_bits = t(bits.view(np.int32))
+    meta = mk.MapMeta(k=20, read_len=64, allowed_mismatches=2,
+                      left_extend_fraction=0.2, max_nodes=M, cuckoo_mask=0,
+                      tx_words=TW)
+    if entry == "nodes":
+        ids, fns = nodes, (kernels.ec_bits_cuda, mk.ec_bitset_intersect)
+    else:
+        ids = np.where(nodes >= 0, node_row[nodes.clip(0), 3], -1)
+        fns = (kernels.ec_bits_classes_cuda, mk.ec_bitset_intersect_classes)
+    return (*fns, (meta, idx, t(ids.astype(np.int32)), t(n_nodes),
+                   t(mapped)), kinds)
+
+
+def _ec_edge_check(entry, B, TW, device):
+    """The kernel's entry equals its plain version on _ec_edge_case's
+    inputs, and the plain version holds each kind's meaning."""
+    cuda, plain, args, kinds = _ec_edge_case(entry, B, TW, device)
+    before = cuda.launches
+    got = cuda(*args)
+    want = plain(*args)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    assert cuda.launches == before + 1
+    assert got.dtype == want.dtype == torch.int32
+    assert got.shape == want.shape == (B, TW)
+    assert torch.equal(got, want)
+    _ec_kinds_hold(want, kinds)
+
+
+def _ec_kinds_hold(bits, kinds):
+    for b, kind in enumerate(kinds):
+        if kind in (2, 4):  # mapped, no usable id: all-ones
+            assert (bits[b] == -1).all()
+        elif kind == 5:
+            assert (bits[b] == 0).all()
+        elif kind == 1:  # M classes whose AND keeps about 63% of the bits
+            assert (bits[b] != 0).any()
+
+
+@pytest.mark.parametrize("TW", [1, 33])
+def test_ec_bits_edge_kinds_on_cpu(TW):
+    """The plain intersections on _ec_edge_case's reads: the node-id and
+    class-id entries agree, each kind of read holds its meaning, and every
+    row is the AND of its classes' rows as numpy computes it."""
+    B = 2 * EC_READS + 1
+    _, nodes_fn, args, kinds = _ec_edge_case("nodes", B, TW, "cpu")
+    _, classes_fn, cargs, ckinds = _ec_edge_case("classes", B, TW, "cpu")
+    assert kinds == ckinds
+    got = nodes_fn(*args)
+    assert torch.equal(got, classes_fn(*cargs))
+    _ec_kinds_hold(got, kinds)
+    meta, idx, classes, n_nodes, mapped = cargs
+    table = idx.ec_bits.numpy()
+    for b in range(B):
+        want = np.full(TW, -1, np.int32)
+        for e in classes[b, :max(min(int(n_nodes[b]), meta.max_nodes),
+                                 0)].tolist():
+            if e >= 0:
+                want &= table[e]
+        assert np.array_equal(got[b].numpy(), want if mapped[b] else 0 * want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("TW", [1, 3, 33, 337, 512])
+@pytest.mark.parametrize("B", [1, 3, EC_READS + 1, 1000])
+@pytest.mark.parametrize("entry", ["nodes", "classes"])
+def test_ec_bits_edges_match_plain_on_cuda(entry, B, TW):
+    """Both K4 entries against their plain versions, tolerance 0, at batch
+    sizes around a block of reads and word widths that do and do not fill
+    16-byte pieces (TW 1, 3 and 33 put pieces across row ends), with
+    every kind of read of _ec_edge_case at max_nodes 120."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _ec_edge_check(entry, B, TW, "cuda")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k,L", [(20, 64), (64, 96)])
 def test_ec_bits_on_the_map_path_on_cuda(k, L):
@@ -536,6 +667,52 @@ def test_multi_device_kernels_match_plain_on_cuda(S, cap_scale):
         assert torch.equal(kernels.tx_counts_cuda(bits, n_tx),
                            mesh.tx_compat_counts(bits, n_tx))
     torch.cuda.synchronize()
+
+
+TX_PLANES = (8, 12)  # csrc/txcounts.cu: a thread's planes, a block's
+
+
+def _tx_edge_check(B, TW, device):
+    """K9 against its plain version, tolerance 0, on random words with an
+    all-ones word 0 (its counts reach B: past a thread's and a block's
+    planes at B = 2^P + 1) and rows zero but for it, for n_tx 1, 32 TW - 5
+    and 32 TW: on the B rows, on the rows after the first (a base off 16
+    bytes when TW % 4 != 0) and on no rows at all."""
+    from pseudoaligner_torch.parallel import mesh
+
+    rng = np.random.default_rng(10 * B + TW)
+    full = rng.integers(-2**31, 2**31, (B + 1, TW), dtype=np.int64).astype(
+        np.int32)
+    full[2::5, 1:] = 0
+    full[:, 0] = -1
+    full = torch.from_numpy(full).to(device)
+    for bits in (full[:B], full[1:], full[:0]):
+        assert bits.is_contiguous()
+        for n_tx in (1, 32 * TW - 5, 32 * TW):
+            if n_tx < 1:
+                continue
+            before = kernels.tx_counts_cuda.launches
+            got = kernels.tx_counts_cuda(bits, n_tx)
+            # no rows: zero counts (the plain version, like the reference's,
+            # cannot reshape an empty batch)
+            want = (mesh.tx_compat_counts(bits, n_tx) if len(bits) else
+                    torch.zeros(n_tx, dtype=torch.int32, device=device))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            assert kernels.tx_counts_cuda.launches == before + 1
+            assert got.dtype == want.dtype == torch.int32
+            assert torch.equal(got, want), (B, TW, n_tx)
+            assert (want[:min(32, n_tx)] == bits.shape[0]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("TW", [1, 3, 11, 337])
+@pytest.mark.parametrize("B", [1, 3, 2**TX_PLANES[0] + 1, 3000,
+                               2**TX_PLANES[1] + 1])
+def test_tx_counts_edges_match_plain_on_cuda(B, TW):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _tx_edge_check(B, TW, "cuda")
 
 
 @pytest.mark.gpu

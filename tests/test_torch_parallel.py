@@ -87,12 +87,22 @@ def test_pack_reads_device_matches_reference(L_):
     assert np.array_equal(got.numpy().view(np.uint32), want)
 
 
-@pytest.mark.parametrize("n_tx", [1, 31, 32, 70])
-def test_tx_compat_counts_matches_reference(n_tx):
+@pytest.mark.parametrize("n_tx,TW,B", [
+    pytest.param(1, 1, 50, id="1"),
+    pytest.param(31, 1, 50, id="31"),
+    pytest.param(32, 1, 50, id="32"),
+    pytest.param(70, 3, 50, id="70"),
+    # K9's shapes: the bitset cell's TW 337 with n_tx no multiple of 32;
+    # batches past a thread's 2^8 and a block's 2^12 counts
+    pytest.param(10766, 337, 50, id="10766-TW337"),
+    pytest.param(10771, 337, 2**8 + 1, id="10771-TW337-B257"),
+    pytest.param(341, 11, 2**12 + 1, id="341-TW11-B4097"),
+])
+def test_tx_compat_counts_matches_reference(n_tx, TW, B):
     rng = np.random.default_rng(n_tx)
-    TW = (n_tx + 31) // 32
-    bits = rng.integers(0, 2**32, (50, TW), dtype=np.uint64).astype(np.uint32)
+    bits = rng.integers(0, 2**32, (B, TW), dtype=np.uint64).astype(np.uint32)
     bits[::4] = 0
+    bits[1::4, 0] = 2**32 - 1  # word 0 set in a quarter of the rows or more
     want = np.asarray(ref_tx_counts(ref_mk.MapResult(
         *[None] * 5, ec_bits=jnp.asarray(bits), ec_distinct=None), n_tx))
     got = tx_compat_counts(torch.from_numpy(bits.view(np.int32))
