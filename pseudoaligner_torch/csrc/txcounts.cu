@@ -23,7 +23,9 @@
 // counts and add them to counts with one coalesced atomic per nonzero
 // count.  The host sizes the grid to one wave of the card, from the SM
 // count and the kernel's occupancy, with as few row chunks (so atomics per
-// transcript) as fill it.  Loads are 4 bytes, coalesced across the warp's
+// transcript) as fill it: at B = 65,536 and TW = 337, 11 x 24 blocks of
+// 1,024 threads, two an SM, so at most 24 atomics per transcript against
+// the parent's 32 (blocks of 16 warps ran no faster and needed 47).  Loads are 4 bytes, coalesced across the warp's
 // 32 columns, so any 4-byte-aligned input works (a row slice too).
 // Integer addition gives the same sum in any order.
 
@@ -33,7 +35,7 @@
 
 namespace {
 
-constexpr int LOG_Y = 4;
+constexpr int LOG_Y = 5;
 constexpr int Y = 1 << LOG_Y;  // warps per block, each over its own rows
 constexpr int G = 8;           // rows per group: one carry-save tree
 constexpr int HP = 5;          // planes of the eights count

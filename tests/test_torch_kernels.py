@@ -669,7 +669,7 @@ def test_multi_device_kernels_match_plain_on_cuda(S, cap_scale):
     torch.cuda.synchronize()
 
 
-TX_PLANES = (8, 12)  # csrc/txcounts.cu: a thread's planes, a block's
+TX_PLANES = (8, 13)  # csrc/txcounts.cu: a thread's planes, a block's
 
 
 def _tx_edge_check(B, TW, device):

@@ -93,10 +93,10 @@ def test_pack_reads_device_matches_reference(L_):
     pytest.param(32, 1, 50, id="32"),
     pytest.param(70, 3, 50, id="70"),
     # K9's shapes: the bitset cell's TW 337 with n_tx no multiple of 32;
-    # batches past a thread's 2^8 and a block's 2^12 counts
+    # batches past a thread's 2^8 and a block's 2^13 counts
     pytest.param(10766, 337, 50, id="10766-TW337"),
     pytest.param(10771, 337, 2**8 + 1, id="10771-TW337-B257"),
-    pytest.param(341, 11, 2**12 + 1, id="341-TW11-B4097"),
+    pytest.param(341, 11, 2**13 + 1, id="341-TW11-B8193"),
 ])
 def test_tx_compat_counts_matches_reference(n_tx, TW, B):
     rng = np.random.default_rng(n_tx)
