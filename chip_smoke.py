@@ -602,10 +602,12 @@ def unpack_work(args, cfg):
 
 
 def pack_work(codes):
-    """K6: the [B, L] int32 codes in, the packed words out; a shift and an
-    OR per code."""
+    """K6: the [B, L] codes in at their width (one byte a base for the
+    uint8 entry, four for the int32 one), the packed words out; a shift
+    and an OR per code."""
     B, L = codes.shape
-    return 4 * B * L + 4 * B * ((L + 15) // 16), 2 * B * L
+    return (codes.element_size() * B * L + 4 * B * ((L + 15) // 16),
+            2 * B * L)
 
 
 def route_work(packed, lens, k, read_len, n_shards, cap):
@@ -802,6 +804,9 @@ def main(argv=None) -> int:
         device_index_from_image,
         ec_bitset_intersect,
         ec_bitset_intersect_classes,
+        lens_link_dtype,
+        map_batch,
+        map_batch_packed,
         pack_reads_host,
         pack_serving_args,
         packed_tensors,
@@ -974,7 +979,8 @@ def main(argv=None) -> int:
                 "stats": kernels.stats_cuda.launches,
                 "ec_bits": kernels.ec_bits_cuda.launches,
                 "unpack": kernels.unpack_index_cuda.launches,
-                "pack": kernels.pack_reads_cuda.launches,
+                "pack": kernels.pack_reads_u8_cuda.launches,
+                "pack_i32": kernels.pack_reads_i32_cuda.launches,
                 "route": kernels.route_cuda.launches,
                 "unscatter": kernels.unscatter_cuda.launches,
                 "mphf_dynamic": kernels.mphf_dynamic_cuda.launches,
@@ -1013,6 +1019,23 @@ def main(argv=None) -> int:
     say(f"[cuckoo] kernel == plain, tolerance 0: seed and walk (serving "
         f"shape) on all {n_b} batches of {BATCH} reads; walk full output "
         f"(nodes {tuple(full_k.nodes.shape)}) on batch 0")
+    # the tensor entry on int32 codes: K6's int32 entry packs them on the
+    # card, then K1 and K2 as on the host-packed batches
+    kernels.reset_launch_counts()
+    for b in range(min(MODE_BATCHES, n_b)):
+        c32 = torch.from_numpy(reads[b * BATCH:(b + 1) * BATCH].astype(
+            np.int32)).to(dev)
+        compare_results(map_batch(meta, idx, c32, lens),
+                        map_batch_packed(meta, idx, packed[b], lens),
+                        f"map_batch on int32 codes, batch {b}")
+    torch.cuda.synchronize()
+    tensor_launches = launch_counts()
+    if tensor_launches["pack_i32"] < 1 or tensor_launches["pack"]:
+        raise AssertionError(f"map_batch on int32 codes: launches "
+                             f"{tensor_launches}")
+    say(f"[cuckoo] map_kernel.map_batch on int32 code tensors == "
+        f"map_batch_packed on the host-packed batches, every MapResult "
+        f"field; launches {tensor_launches}")
     # the bounds of the work the timed calls below do, batch by batch
     bounds = {
         "seed": bound([seed_work(meta, idx, pk, lens) for pk in packed]),
@@ -1124,7 +1147,7 @@ def main(argv=None) -> int:
         del al, idx
 
     # ---- 6. the main paths: the CLI under each seed index, batch_stats ----
-    launches, outs = {}, {}
+    launches, outs = {"tensor": tensor_launches}, {}
     for mode in ("cuckoo", "bucket1", "mphf"):
         out_path = os.path.join(work, f"map_{mode}.out")
         kernels.reset_launch_counts()
@@ -1462,16 +1485,48 @@ def main(argv=None) -> int:
         f"{km.cap} per destination, lookup bytes per shard {lk_bytes}, "
         f"graph bytes {kp.dev.nbytes()}")
 
-    # (a) the new kernels against their plain versions, tolerance 0
-    codes = [torch.from_numpy(reads[b * BATCH:(b + 1) * BATCH].astype(
-        np.int32)).to(dev) for b in range(MODE_BATCHES)]
-    for b, c in enumerate(codes):
-        err["pack"] = max(err.get("pack", 0),
-                          max_abs_diff(kernels.pack_reads_cuda(c),
-                                       pack_reads_device(c)),
-                          max_abs_diff(kernels.pack_reads_cuda(c), packed[b]))
-    if err["pack"]:
-        raise AssertionError(f"pack kernel differs by up to {err['pack']}")
+    # (a) the new kernels against their plain versions, tolerance 0; K6's
+    # two entries on the same codes at one byte a base (as they cross the
+    # kpart link) and at four, each also against the host pack
+    rows = [np.ascontiguousarray(reads[b * BATCH:(b + 1) * BATCH],
+                                 dtype=np.uint8) for b in range(MODE_BATCHES)]
+    codes = {"pack": [torch.from_numpy(r).to(dev) for r in rows],
+             "pack_i32": [torch.from_numpy(r.astype(np.int32)).to(dev)
+                          for r in rows]}
+    pack_entry = {"pack": kernels.pack_reads_u8_cuda,
+                  "pack_i32": kernels.pack_reads_i32_cuda}
+    for key, cs in codes.items():
+        err[key] = 0
+        for b, c in enumerate(cs):
+            got = pack_entry[key](c)
+            err[key] = max(err[key], max_abs_diff(got, pack_reads_device(c)),
+                           max_abs_diff(got, packed[b]))
+        if err[key]:
+            raise AssertionError(f"{key} kernel differs by up to {err[key]}")
+    # the kpart link: the codes map_batch ships per batch, and the host's
+    # time to ship them (narrow, pin, start the copy) against the int32
+    # codes the path shipped before and against packing on the host
+    ldt = lens_link_dtype(READ_LEN)
+    link_bytes, link_ms = [], {"uint8": 0.0, "int32": 0.0, "host pack": 0.0}
+    for r in rows:
+        for how in link_ms:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if how == "uint8":
+                cs, _ = kp.link_batch(r, lens_np)
+            elif how == "int32":
+                cs, _ = si.shard_batch(np.asarray(r).astype(np.int32),
+                                       np.asarray(lens_np).astype(ldt), mesh1)
+            else:
+                pack_reads_host(r)
+            link_ms[how] += (time.perf_counter() - t) * 1000 / len(rows)
+            if how == "uint8":
+                link_bytes.append(sum(c.numel() * c.element_size()
+                                      for c in cs))
+                if [c.dtype for c in cs] != [torch.uint8]:
+                    raise AssertionError(f"kpart link codes {cs}")
+    if link_bytes != [BATCH * READ_LEN] * len(rows):
+        raise AssertionError(f"kpart link bytes per batch {link_bytes}")
     err["route"] = 0
     P_ = READ_LEN - 20 + 1
     for S in (1, 2, 4, 8):
@@ -1494,8 +1549,8 @@ def main(argv=None) -> int:
             if err["route"]:
                 raise AssertionError(f"route kernels differ at S={S}, batch "
                                      f"{b} by up to {err['route']}")
-    say(f"[multi] pack kernel == plain == host pack on {MODE_BATCHES} batches;"
-        f" route and unscatter kernels == plain at S = 1 ({MODE_BATCHES} "
+    say(f"[multi] pack kernel, uint8 and int32 entries, == plain == host pack"
+        f" on {MODE_BATCHES} batches; route and unscatter kernels == plain at S = 1 ({MODE_BATCHES} "
         "batches), 2, 4, 8 (shard 0's rows), tolerance 0")
     shard = kp.lookups[0]
     # K1 probing the whole MPHF gives the table the routed seeds must give
@@ -1560,17 +1615,29 @@ def main(argv=None) -> int:
         f"{4 * len(pa_keys)} queries, three quarters zero padding, of a "
         f"{len(pa_keys)}-key lookup whose keys hold poly-A; next_hit kernel "
         "== plain == K1's table over the whole MPHF; tolerance 0")
-    bounds["pack"] = bound([pack_work(c) for c in codes])
+    bounds["pack"] = bound([pack_work(c) for c in codes["pack"]])
+    bounds["pack_i32"] = bound([pack_work(c) for c in codes["pack_i32"]])
     bounds["route"] = bound([route_work(packed[b], lens, 20, READ_LEN, 1,
                                         km.cap) for b in range(MODE_BATCHES)])
     bounds["mphf_dynamic"] = bound([mphf_dynamic_work(q, shard, km.n_levels)
                                     for q in rq])
     bounds["next_hit"] = bound([next_hit_work(n) for n, _ in seeds_k])
     backs = [kernels.mphf_dynamic_cuda(q, shard, km.n_levels) for q in rq]
-    time_pair("pack", lambda i: kernels.pack_reads_cuda(codes[i]), n_b,
-              "pack_kernel", MODE_BATCHES)
-    time_pair("pack_plain", lambda i: pack_reads_device(codes[i]), 4, None,
-              MODE_BATCHES)
+    for key, sym in (("pack", "pack_u8_kernel"),
+                     ("pack_i32", "pack_i32_kernel")):
+        time_pair(key, lambda i, k=key: pack_entry[k](codes[k][i]), n_b, sym,
+                  MODE_BATCHES)
+        time_pair(f"{key}_plain", lambda i, k=key: pack_reads_device(
+            codes[k][i]), 4, None, MODE_BATCHES)
+    floor = held_ms(lambda: torch.cuda._sleep(1), n_b)
+    say(f"[multi] kpart link per {BATCH}-read batch: codes {link_bytes[0]} B "
+        f"(uint8; {4 * link_bytes[0]} B as int32); host ms per batch to ship "
+        f"them (narrow, pin, start the copy): uint8 {link_ms['uint8']}, "
+        f"int32 {link_ms['int32']}; the native host pack (pack_reads_host) "
+        f"{link_ms['host pack']} ms per batch, against K6 uint8 "
+        f"{ms['pack']} held (bound {bounds['pack'][0]}, int32 entry "
+        f"{ms['pack_i32']}, bound {bounds['pack_i32'][0]}; a one-thread "
+        f"kernel holds {floor} by the same method)")
     time_pair("route_only", lambda i: kernels.route_cuda(
         packed[i], lens, 20, READ_LEN, 1, km.cap), n_b, None, MODE_BATCHES)
     time_pair("unscatter", lambda i: kernels.unscatter_cuda(
@@ -1609,7 +1676,9 @@ def main(argv=None) -> int:
     dt = time.time() - t
     launches["kpart"] = launch_counts()
     need = ("pack", "route", "unscatter", "mphf_dynamic", "next_hit", "walk")
-    if min(launches["kpart"][k] for k in need) < 1:
+    # the codes crossed the link as uint8: K6's uint8 entry packed them
+    if min(launches["kpart"][k] for k in need) < 1 or launches["kpart"][
+            "pack_i32"]:
         raise AssertionError(f"a kernel never launched on the kpart path: "
                              f"{launches['kpart']}")
     if n_emit != n_reads or buf.getvalue() != outs["cuckoo"]:
@@ -1740,7 +1809,8 @@ def main(argv=None) -> int:
     launches["graph"] = launch_counts()
     need = ("pack", "route", "unscatter", "mphf_dynamic", "next_hit", "gwalk",
             "gfetch")
-    if min(launches["graph"][k] for k in need) < 1:
+    if min(launches["graph"][k] for k in need) < 1 or launches["graph"][
+            "pack_i32"]:
         raise AssertionError(f"a kernel never launched on the graph-sharded "
                              f"path: {launches['graph']}")
     if n_emit != n_reads or buf.getvalue() != outs["cuckoo"]:
@@ -1940,6 +2010,8 @@ def main(argv=None) -> int:
             "mphf": "map CLI, mphf index", "stats": "batch_stats",
             "bitset": "count_single_cell and map_fastq on the bitset index",
             "kpart": "kpart serving emit, S = 1",
+            "tensor": "map_kernel.map_batch on int32 code tensors, cuckoo, "
+                      f"{min(MODE_BATCHES, n_b)} batches",
             "sharded": "ShardedAligner.map_batch, bitset index",
             "graph": "graph-sharded kpart serving emit, S = 1",
             "graph_full": "graph-sharded full output, S = 4 loopback"}
@@ -1981,6 +2053,8 @@ def main(argv=None) -> int:
               "ops/map_kernel.py:1504", "cuckoo", "unpack"),
         entry("pack_reads", "pack", "pack.cu", "ops/map_kernel.py:704",
               "kpart", "pack"),
+        entry("pack_reads[int32]", "pack_i32", "pack.cu",
+              "ops/map_kernel.py:704", "tensor", "pack_i32"),
         entry("route", "route", "route.cu", "parallel/sharded_index.py:262",
               "kpart", "route"),
         entry("mphf_dynamic", "mphf_dynamic", "mphfdyn.cu",

@@ -1,9 +1,9 @@
 """Build, bind and launch the CUDA kernels: csrc/seed.cu K1 (and its
 next_hit entry), csrc/walk.cu K2, csrc/stats.cu K3, csrc/ecbits.cu K4 (and
-its entry from class ids), csrc/unpack.cu K5, csrc/pack.cu K6,
-csrc/route.cu K7 (route and unscatter), csrc/mphfdyn.cu K8,
-csrc/txcounts.cu K9, csrc/gwalk.cu K10 (the graph-sharded walk's steps)
-and csrc/gfetch.cu K11 (its owner-side fetch).
+its entry from class ids), csrc/unpack.cu K5, csrc/pack.cu K6 (uint8 and
+int32 entries), csrc/route.cu K7 (route and unscatter), csrc/mphfdyn.cu
+K8, csrc/txcounts.cu K9, csrc/gwalk.cu K10 (the graph-sharded walk's
+steps) and csrc/gfetch.cu K11 (its owner-side fetch).
 
 The sources compile with nvcc for sm_90a, one nvcc per source, all
 started together, and link into one shared library with a plain C
@@ -134,8 +134,10 @@ def _load():
             lib.pa_unpack_index.argtypes = [_I, _L, _I, _I, _I] + [_P] * 7
             lib.pa_next_hit.restype = _I
             lib.pa_next_hit.argtypes = [_I] * 4 + [_P] * 5
-            lib.pa_pack_reads.restype = _I
-            lib.pa_pack_reads.argtypes = [_I] * 3 + [_P] * 3
+            for entry in PACK_ENTRIES.values():
+                fn = getattr(lib, entry)
+                fn.restype = _I
+                fn.argtypes = [_I] * 3 + [_P] * 3
             lib.pa_route.restype = _I
             lib.pa_route.argtypes = [_I] * 7 + [_P] * 9
             lib.pa_unscatter.restype = _I
@@ -509,23 +511,61 @@ def next_hit_cuda(seed_node: torch.Tensor, seed_off: torch.Tensor,
 next_hit_cuda.launches = 0
 
 
-def pack_reads_cuda(codes: torch.Tensor) -> torch.Tensor:
-    """K6: base codes [B, L] int32 -> packed [B, ceil(L/16)] int32 (uint32
-    bit patterns), as map_kernel.pack_reads_device (see csrc/pack.cu)."""
+# K6's entries by code dtype: uint8, the width at which the
+# k-mer-partitioned path ships codes over the link, and int32
+PACK_ENTRIES = {torch.uint8: "pa_pack_reads_u8",
+                torch.int32: "pa_pack_reads_i32"}
+
+
+def _pack(codes: torch.Tensor, dtype) -> torch.Tensor:
     _require_cuda(codes)
     dev = codes.device
+    if codes.dim() != 2:
+        raise ValueError(f"codes: shape {tuple(codes.shape)}, expected "
+                         "[B, L]")
     B, L = codes.shape
-    _check("codes", codes, torch.int32, (B, L), dev)
+    _check("codes", codes, dtype, (B, L), dev)
     lib = _load()
+    # codes may lie at any address; packed, which the kernel stores 16 bytes
+    # at a time, is a fresh allocation
     packed = torch.empty((B, (L + 15) // 16), dtype=torch.int32, device=dev)
-    rc = lib.pa_pack_reads(dev.index, B, L, codes.data_ptr(),
-                           packed.data_ptr(), _stream(dev))
+    rc = getattr(lib, PACK_ENTRIES[dtype])(dev.index, B, L, codes.data_ptr(),
+                                           packed.data_ptr(), _stream(dev))
     _raise_on(lib, rc, "pack kernel")
-    pack_reads_cuda.launches += 1
     return packed
 
 
-pack_reads_cuda.launches = 0
+def pack_reads_u8_cuda(codes: torch.Tensor) -> torch.Tensor:
+    """K6's uint8 entry: base codes [B, L] uint8 -> packed [B, ceil(L/16)]
+    int32 (uint32 bit patterns), as map_kernel.pack_reads_device (see
+    csrc/pack.cu).  Codes cross the link at this width on the
+    k-mer-partitioned path."""
+    packed = _pack(codes, torch.uint8)
+    pack_reads_u8_cuda.launches += 1
+    return packed
+
+
+def pack_reads_i32_cuda(codes: torch.Tensor) -> torch.Tensor:
+    """K6's int32 entry: base codes [B, L] int32 -> packed, as
+    pack_reads_u8_cuda."""
+    packed = _pack(codes, torch.int32)
+    pack_reads_i32_cuda.launches += 1
+    return packed
+
+
+pack_reads_u8_cuda.launches = 0
+pack_reads_i32_cuda.launches = 0
+
+
+def pack_reads_cuda(codes: torch.Tensor) -> torch.Tensor:
+    """K6: base codes [B, L], uint8 or int32, through the entry of their
+    dtype (each keeps its own launch counter); any other dtype raises."""
+    if codes.dtype == torch.uint8:
+        return pack_reads_u8_cuda(codes)
+    if codes.dtype == torch.int32:
+        return pack_reads_i32_cuda(codes)
+    raise TypeError(f"codes: dtype {codes.dtype}, expected torch.uint8 or "
+                    "torch.int32")
 
 MAX_SHARDS = 64  # route.cu's per-block owner counters
 ROUTE_BLOCK = 256  # route.cu's positions per block
@@ -850,7 +890,8 @@ gfetch_cuda.launches = 0
 GWALK_WRAPPERS = (gwalk_init_cuda, gwalk_left_a_cuda, gwalk_left_b_cuda,
                   gwalk_forward_cuda, gwalk_finish_cuda)
 WRAPPERS = (seed_tables_cuda, walk_cuda, stats_cuda, ec_bits_cuda,
-            unpack_index_cuda, next_hit_cuda, pack_reads_cuda, route_cuda,
+            unpack_index_cuda, next_hit_cuda, pack_reads_u8_cuda,
+            pack_reads_i32_cuda, route_cuda,
             unscatter_cuda, mphf_dynamic_cuda, tx_counts_cuda,
             ec_bits_classes_cuda, *GWALK_WRAPPERS, gfetch_cuda)
 

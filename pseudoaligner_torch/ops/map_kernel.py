@@ -1043,8 +1043,13 @@ def walk_from_seeds(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
 
 
 def pack_reads(reads: torch.Tensor) -> torch.Tensor:
-    """[B, L] int32 base codes -> packed reads: the pack kernel (K6) for a
-    CUDA tensor, pack_reads_device for a CPU one."""
+    """[B, L] integer base codes -> packed reads: the pack kernel (K6) for a
+    CUDA tensor, pack_reads_device for a CPU one.  uint8 and int32 codes go
+    to K6's entry of their width as they are; other integer dtypes are
+    cast to int32 first."""
+    if reads.dtype not in (torch.uint8, torch.int32):
+        reads = reads.to(torch.int32)
+    reads = reads.contiguous()
     if reads.is_cuda:
         from .kernels import pack_reads_cuda
 
@@ -1056,7 +1061,7 @@ def map_batch(meta: MapMeta, idx: DeviceIndex, reads: torch.Tensor,
               lens: torch.Tensor) -> MapResult:
     """Map a [B, L] batch of unpacked base codes: packed on the device
     (K6 on a GPU), then map_batch_packed."""
-    packed = pack_reads(reads.to(torch.int32).contiguous())
+    packed = pack_reads(reads)
     return map_batch_packed(meta, idx, packed, lens.to(torch.int32))
 
 
@@ -1066,5 +1071,5 @@ def map_batch_with_seeds(meta: MapMeta, idx: DeviceIndex,
     """The walk and EC stages from a given next-hit table (the
     k-mer-partitioned step's; nh3 from next_hit_table) on [B, L] unpacked
     base codes, packed on the device first."""
-    packed = pack_reads(reads.to(torch.int32).contiguous())
+    packed = pack_reads(reads)
     return walk_from_seeds(meta, idx, packed, lens.to(torch.int32), nh3)

@@ -6,8 +6,10 @@ of the index at transcriptome scale) is partitioned over the mesh by a
 hash of the k-mer; each shard holds one sub-index.  Mapping a batch, per
 shard:
 
-1. pack the shard's read codes on the device (`pack_reads_device`, K6
-   csrc/pack.cu on a GPU);
+1. ship the shard's read codes over the host-to-device link at one byte
+   a base (uint8, narrowed as the reference narrows them) and pack them
+   on the device from that width (`pack_reads_device`, K6's uint8 entry,
+   csrc/pack.cu, on a GPU);
 2. route every valid position's k-mer to its owner shard, `hash & (S-1)`,
    into fixed-capacity send buffers at its stable rank among the queries
    of that owner (`route_queries`, K7 csrc/route.cu);
@@ -402,7 +404,8 @@ def _intersect_classes(meta, idx, classes, res):
 def make_kpart_step(meta, kmeta: KPartMeta, mesh, n_tx: int):
     """The k-mer-partitioned step: fn(idx, lookups, codes, lens, graphs=None,
     stats=None, steps=None) -> (results, counts, overflow), where lookups,
-    codes [b, L] and lens hold one tensor (set) per local shard, and, with
+    codes [b, L] (uint8 as they crossed the link, packed from that width)
+    and lens hold one tensor (set) per local shard, and, with
     kmeta.node_block > 0, graphs one GraphShards block per local shard
     (upload_graph); results is one MapResult per local shard, counts
     [n_tx] int32 and overflow [] int32 sums over the mesh.  `stats`
@@ -414,7 +417,7 @@ def make_kpart_step(meta, kmeta: KPartMeta, mesh, n_tx: int):
     def step(idx, lookups: list, codes: list, lens: list, graphs=None,
              stats=None, steps=None):
         lens = [n.to(torch.int32) for n in lens]
-        packed = [pack_reads(c.to(torch.int32).contiguous()) for c in codes]
+        packed = [pack_reads(c) for c in codes]
         seeds = _routed_seed_tables(meta, kmeta, lookups, packed, lens, mesh)
         nh3 = [_next_hit(node, off, ln, meta.k, P)
                for ln, (node, off, _over, _drop) in zip(lens, seeds)]
@@ -538,6 +541,16 @@ class KmerPartitionedAligner:
             meta=self.meta,
         )
 
+    def link_batch(self, reads: np.ndarray, lens: np.ndarray):
+        """This process's shards' rows of a global [B, L] batch of base
+        codes on the mesh's device, as they cross the link: codes at one
+        byte a base (uint8, narrowed as the reference narrows them) and
+        lens at lens_link_dtype's width -> ([codes of each local shard],
+        [lens of each])."""
+        ldt = lens_link_dtype(self.meta.read_len)
+        return shard_batch(np.asarray(reads, dtype=np.uint8),
+                           np.asarray(lens).astype(ldt), self.mesh)
+
     def map_batch(self, reads: np.ndarray, lens: np.ndarray):
         """Map a global [B, L] batch of base codes (every process passes
         the same batch) -> (MapResult of this process's shards' rows,
@@ -546,9 +559,7 @@ class KmerPartitionedAligner:
         if reads.shape[0] % nd:
             raise ValueError(
                 f"batch {reads.shape[0]} not divisible by mesh size {nd}")
-        ldt = lens_link_dtype(self.meta.read_len)
-        codes, ln = shard_batch(np.asarray(reads).astype(np.int32),
-                                np.asarray(lens).astype(ldt), self.mesh)
+        codes, ln = self.link_batch(reads, lens)
         results, counts, overflow = self._step(self.dev, self.lookups, codes,
                                                ln, self.graphs,
                                                self.walk_stats,

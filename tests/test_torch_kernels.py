@@ -641,6 +641,8 @@ def test_multi_device_kernels_match_plain_on_cuda(S, cap_scale):
     codes, lens, lookup, n_levels, cap = _route_case(S, cap_scale, "cuda")
     packed = kernels.pack_reads_cuda(codes)
     assert torch.equal(packed, mk.pack_reads_device(codes))
+    assert torch.equal(kernels.pack_reads_cuda(codes.to(torch.uint8)),
+                       packed)
     got = kernels.route_cuda(packed, lens, 20, 64, S, cap)
     want = si.route_queries(packed, lens, 20, 64, S, cap)
     for a, b in zip(got, want):
@@ -667,6 +669,80 @@ def test_multi_device_kernels_match_plain_on_cuda(S, cap_scale):
         assert torch.equal(kernels.tx_counts_cuda(bits, n_tx),
                            mesh.tx_compat_counts(bits, n_tx))
     torch.cuda.synchronize()
+
+
+PACK_TILE = 256  # csrc/pack.cu: output words per block
+
+
+def _pack_check(B, L, dtype, device):
+    """K6's entry for `dtype` against the plain pack, tolerance 0: codes
+    0-3 (also against the host pack) and 0-255 (not masked to two bits:
+    high bits bleed into the next bases' places), on a tensor of its own
+    and on contiguous views whose base lies 1 to 15 bytes off 16-byte
+    alignment (the kernel reads codes at any address); each call adds one
+    to its own entry's counter and leaves the other's alone."""
+    rng = np.random.default_rng(1000 * B + L)
+    ours = {np.uint8: kernels.pack_reads_u8_cuda,
+            np.int32: kernels.pack_reads_i32_cuda}
+    other = ours[np.int32 if dtype is np.uint8 else np.uint8]
+    n = B * L
+    for hi in (4, 256):
+        flat = torch.from_numpy(rng.integers(0, hi, n + 16).astype(dtype))
+        flat = flat.to(device)
+        offs = (1, 3, 15) if dtype is np.uint8 else (1, 3)
+        for codes in [flat[:n].clone().view(B, L)] + [
+                flat[o:o + n].view(B, L) for o in offs]:
+            assert codes.is_contiguous()
+            before = (ours[dtype].launches, other.launches)
+            got = kernels.pack_reads_cuda(codes)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            assert (ours[dtype].launches, other.launches) == (
+                before[0] + 1, before[1])
+            want = mk.pack_reads_device(codes)
+            assert got.dtype == want.dtype == torch.int32
+            assert torch.equal(got, want), (B, L, dtype, hi,
+                                            codes.data_ptr() % 16)
+            if hi == 4:
+                host = mk.pack_reads_host(codes.cpu().numpy().astype(
+                    np.uint8))
+                assert np.array_equal(got.cpu().numpy().view(np.uint32),
+                                      host)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32],
+                         ids=["uint8", "int32"])
+@pytest.mark.parametrize("L", [16, 37, 60, 64, 101])
+@pytest.mark.parametrize("B", [1, 63, 1000])
+def test_pack_entries_match_plain_on_cuda(B, L, dtype):
+    """Both K6 entries at the widths of the tests and the kpart path, for
+    one read and for batches that end inside a block's tile of PACK_TILE
+    words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert B * ((L + 15) // 16) % PACK_TILE or B == 1
+    _pack_check(B, L, dtype, "cuda")
+
+
+def test_pack_reads_dispatch_on_cpu():
+    """map_kernel.pack_reads: uint8, int32 and int64 codes on the CPU give
+    the same words through the plain pack and launch nothing; K6's wrapper
+    takes uint8 and int32 and refuses other dtypes."""
+    codes = np.random.default_rng(3).integers(0, 4, (70, 37))
+    before = [fn.launches for fn in kernels.WRAPPERS]
+    got = [mk.pack_reads(torch.from_numpy(codes.astype(dt)))
+           for dt in (np.uint8, np.int32, np.int64)]
+    assert [fn.launches for fn in kernels.WRAPPERS] == before
+    want = mk.pack_reads_host(codes.astype(np.uint8))
+    for g in got:
+        assert g.dtype == torch.int32
+        assert np.array_equal(g.numpy().view(np.uint32), want)
+    with pytest.raises(TypeError, match="uint8 or torch.int32"):
+        kernels.pack_reads_cuda(torch.from_numpy(codes))
+    for dt in (np.uint8, np.int32):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernels.pack_reads_cuda(torch.from_numpy(codes.astype(dt)))
 
 
 TX_PLANES = (8, 13)  # csrc/txcounts.cu: a thread's planes, a block's

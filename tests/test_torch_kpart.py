@@ -379,6 +379,36 @@ def _routing_overflow_case(data, shard_graph):
         kp_full.map_batch(codes, lens)
 
 
+@pytest.mark.parametrize("shard_graph", [False, True])
+def test_kpart_codes_cross_the_link_as_uint8(data, shard_graph):
+    """map_batch on uint8, int32 and int64 code arrays: the step receives
+    each shard's codes as uint8 (one byte a base) and packs them from that
+    width, and all three give the reference's MapResult and counts."""
+    image, pimage, codes, lens = data
+    kw = _cfg("compact")
+    want, want_counts = RefKPart(
+        image, AlignerConfig(**kw), ref_make_mesh(2),
+        shard_graph=shard_graph).map_batch(codes, lens)
+    kp = si.KmerPartitionedAligner(pimage, PortConfig(**kw),
+                                   make_mesh(2, loopback=True, device="cpu"),
+                                   shard_graph=shard_graph)
+    seen = []
+    step = kp._step
+
+    def spy(idx, lookups, codes_, lens_, *rest):
+        seen.append([(c.dtype, tuple(c.shape)) for c in codes_])
+        return step(idx, lookups, codes_, lens_, *rest)
+
+    kp._step = spy
+    for dt in (np.uint8, np.int32, np.int64):
+        got, counts = kp.map_batch(codes.astype(dt), lens)
+        assert_results_equal(want, got, f"kpart codes {np.dtype(dt).name}")
+        assert np.array_equal(counts.numpy(), np.asarray(want_counts))
+    assert seen == [[(torch.uint8, (B // 2, L))] * 2] * 3
+    link, _ = kp.link_batch(codes.astype(np.int64), lens)
+    assert sum(c.numel() * c.element_size() for c in link) == B * L
+
+
 def test_kpart_short_reads_route_nowhere(data):
     """24-base reads at a width of 64: their invalid positions route to no
     shard, so 8 shards at the default slack do not overflow."""

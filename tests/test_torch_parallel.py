@@ -77,14 +77,27 @@ def data(tmp_path_factory):
     return image, mk.image_from_reference(image), codes, lens, fq, idx
 
 
-@pytest.mark.parametrize("L_", [16, 37, 64, 101])
-def test_pack_reads_device_matches_reference(L_):
-    codes = np.random.default_rng(L_).integers(0, 4, (9, L_)).astype(np.int32)
-    want = np.asarray(ref_mk.pack_reads_device(jnp.asarray(codes)))
+@pytest.mark.parametrize("L_,dtype,hi", [
+    # int32 codes 0-3 keep the bare width as their ID
+    *(pytest.param(L_, np.int32, 4, id=str(L_)) for L_ in (16, 37, 64, 101)),
+    # uint8, the k-mer-partitioned link's width, and codes up to 255: the
+    # pack does not mask them to two bits, so high bits bleed into the
+    # next bases' places as in the reference
+    *(pytest.param(L_, dt, hi, id=f"{np.dtype(dt).name}-0_{hi - 1}-{L_}")
+      for dt, hi in ((np.uint8, 4), (np.uint8, 256), (np.int32, 256))
+      for L_ in (16, 37, 60, 64, 101)),
+])
+def test_pack_reads_device_matches_reference(L_, dtype, hi):
+    codes = np.random.default_rng(L_).integers(0, hi, (9, L_)).astype(dtype)
+    want = np.asarray(ref_mk.pack_reads_device(
+        jnp.asarray(codes.astype(np.int32))))
     got = mk.pack_reads_device(torch.from_numpy(codes))
     assert got.dtype == torch.int32 and want.dtype == np.uint32
     assert got.shape == want.shape
     assert np.array_equal(got.numpy().view(np.uint32), want)
+    if hi > 4:
+        assert not np.array_equal(want, ref_mk.pack_reads_device(
+            jnp.asarray(codes.astype(np.int32) & 3)))
 
 
 @pytest.mark.parametrize("n_tx,TW,B", [
