@@ -26,7 +26,9 @@ Phases (every number printed is for the card named on the first line):
    host prepares it: every timed row has it, and the kernels line's `ms`
    is it) and traced (torch.profiler device time, with the launches the
    trace saw), and the span of back-to-back wrapper calls by CUDA events;
-   K2's bound in both shapes;
+   K2's bound in both shapes; `map_kernel.map_batch` on int32 code tensors
+   of 4 batches (K6's int32 entry packs them on the card) gives every
+   MapResult field of the host-packed batches;
 4. maps every batch through the device step alone (flagged -2/-3 share),
    times the serving emit loop (reads/s without set-up), then traces it
    once more for the device's busy share and its time per batch in copies
@@ -74,16 +76,21 @@ Phases (every number printed is for the card named on the first line):
    launch K4, and 2,000 sampled `map_fastq` records equal to the golden
    oracle's;
 12. the multi-device layer on this one card, with a real NCCL process group
-   of one process: (a) the read pack (K6), the routing (K7, route and
+   of one process: (a) the read pack (K6, its uint8 and int32 entries,
+   each also equal to the host pack), the routing (K7, route and
    unscatter, at 1, 2, 4 and 8 shards), the shard-local MPHF probe (K8)
    and K1's next_hit entry equal, tolerance 0, to their plain versions on
    --batches' first 4 batches (next_hit also to K1's table over the whole
    MPHF; K8 also on a buffer, three quarters zero padding, of a small
    lookup whose keys hold the all-zero poly-A k-mer), and timed; the
    lookup bytes per shard (S = 1 here, S = 4 in (c)) are the separate
-   arrays' bytes; (b) the k-mer-partitioned serving aligner over the
-   NCCL group emits every batch of the file, byte-identical to phase 6's
-   cuckoo CLI output (K6, K7, K8, next_hit and K2 must have launched);
+   arrays' bytes; the kpart link's code bytes per batch (uint8, one byte
+   a base) and the host's ms to ship them, against int32 codes and against
+   the native host pack, beside K6 and a one-thread kernel's time; (b) the
+   k-mer-partitioned serving aligner over the NCCL group emits every
+   batch of the file, byte-identical to phase 6's cuckoo CLI output (K6's
+   uint8 entry, K7, K8, next_hit and K2 must have launched, K6's int32
+   entry not);
    (c) four loopback shards on the card give the replicated engine's
    MapResults on 4 batches; (d) the data-parallel ShardedAligner on the
    bitset index: its counts (the transcript-count kernel K9, all_reduce)
@@ -96,8 +103,9 @@ Phases (every number printed is for the card named on the first line):
 13. the graph-sharded walk (`KmerPartitionedAligner(..., shard_graph=True)`:
    node rows and pool in S node blocks, a routed fetch per graph access):
    (a) S = 1 over the NCCL group, the serving emit of every batch,
-   byte-identical to phase 6's cuckoo CLI output (K6, K7, K8, next_hit,
-   the walk steps K10 and the owner-side fetch K11 must have launched),
+   byte-identical to phase 6's cuckoo CLI output (K6's uint8 entry, K7,
+   K8, next_hit, the walk steps K10 and the owner-side fetch K11 must have
+   launched, K6's int32 entry not),
    its rate beside phase 12's and its fetches, all_to_alls and liveness
    syncs per batch; K10 and K11 timed on one recorded walk of the middle
    batch, held launch by launch (each launch of the replayed walk between
@@ -1550,8 +1558,9 @@ def main(argv=None) -> int:
                 raise AssertionError(f"route kernels differ at S={S}, batch "
                                      f"{b} by up to {err['route']}")
     say(f"[multi] pack kernel, uint8 and int32 entries, == plain == host pack"
-        f" on {MODE_BATCHES} batches; route and unscatter kernels == plain at S = 1 ({MODE_BATCHES} "
-        "batches), 2, 4, 8 (shard 0's rows), tolerance 0")
+        f" on {MODE_BATCHES} batches; route and unscatter kernels == plain "
+        f"at S = 1 ({MODE_BATCHES} batches), 2, 4, 8 (shard 0's rows), "
+        "tolerance 0")
     shard = kp.lookups[0]
     # K1 probing the whole MPHF gives the table the routed seeds must give
     mcfg = dataclasses.replace(cfg_s, seed_index="mphf")

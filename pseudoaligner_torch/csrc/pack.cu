@@ -10,58 +10,28 @@
 // Codes are not masked to two bits, as in the reference, and positions past
 // L count as zero.
 //
-// Bound on the H100: memory bytes (L = 60: 3.9 MB in and 1.0 MB out a
-// 65,536-read batch at one byte a base, 15.7 MB in at four), and at one
-// byte a base below the cost of any launch.  Design: a block packs a tile
-// of TILE consecutive output words.  Their codes are one contiguous span
-// (rows are contiguous, and so are a row's words), at most 16 * TILE codes
-// whatever L is.  The block stages the span in shared memory in aligned
-// 16-byte loads under an L2 evict-first hint (the codes are read once), and
-// element by element in the span's two partial 16-byte chunks, so any base
-// address and any L is taken and nothing outside the span is read.  Then
-// each thread builds WPT consecutive words from shared memory and stores
-// them, 16 bytes at a time where WPT is 4, so a warp's stores are one
-// contiguous run.  From shared memory a uint8 word is four 4-byte reads
-// (five when unaligned) folded with funnel shifts; an int32 word is 16
-// reads taken in an order rotated by lane, so the warp's reads spread over
-// the banks instead of stacking 16 deep on two.
+// Bound on the H100: memory bytes (L = 60, a 65,536-read batch: 3.9 MB in
+// at one byte a base, 15.7 MB at four, 1.0 MB out), and at one byte a base
+// below the cost of any launch.  Design: a thread per output word, so a
+// warp's words are consecutive and their codes one contiguous span (a
+// row's words follow each other, and so do the rows), and its stores are
+// 128 contiguous bytes.  Where L % 4 == 0 and the base is aligned to four
+// codes, a word's codes come in at most four wide loads: 16 bytes each at
+// int32, 4 bytes each at uint8, whose four codes are folded into the word
+// with three shifts and masks; otherwise one code at a time.  Loads are
+// plain: the codes were just copied to the card, and the L2 keeps part of
+// them; an evict-first hint cost 6-10% (PERF.md, PR 10).  Staging a block's
+// span in shared memory first (in 16-byte loads or cp.async) was slower at
+// both widths: a block's loads and its packing do not overlap.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 
-#ifndef PACK_TILE
-#define PACK_TILE 256
-#endif
-#ifndef PACK_WPT
-#define PACK_WPT 1
-#endif
-#ifndef PACK_CP_ASYNC
-#define PACK_CP_ASYNC 0
-#endif
-#ifndef PACK_DIRECT
-#define PACK_DIRECT 0
-#endif
-#ifndef PACK_HINT
-#define PACK_HINT 1
-#endif
-#ifndef PACK_QUAD
-#define PACK_QUAD 0
-#endif
-
 namespace {
 
-constexpr int TILE = PACK_TILE;  // output words per block
-constexpr int WPT = PACK_WPT;    // output words per thread
-constexpr int THREADS = TILE / WPT;
-static_assert(TILE % WPT == 0 && THREADS % 32 == 0, "tile of whole warps");
-
-// Bytes of shared memory a block stages for codes of `elem` bytes: the span
-// of at most 16 * TILE codes, up to 15 bytes before it in its first chunk,
-// and the 19 bytes that a uint8 word's five 4-byte reads may reach past its
-// first code.
-constexpr int smem_bytes(int elem) { return 16 * TILE * elem + 48; }
+constexpr int THREADS = 256;
 
 // The 4 code bytes of y (byte j at bits 8j) as the OR of byte j << 2j.
 __device__ __forceinline__ uint32_t fold4(uint32_t y) {
@@ -69,200 +39,13 @@ __device__ __forceinline__ uint32_t fold4(uint32_t y) {
          ((y >> 18) & 0x3FC0u);
 }
 
-// The word of the n (<= 16) codes at byte offset o of shared memory, uint8.
-__device__ __forceinline__ uint32_t word_at(const uint32_t* s32, int o, int n,
-                                            const uint8_t*) {
-  const int a = o >> 2, sh = (o & 3) * 8;
-  uint32_t x[5];
-#pragma unroll
-  for (int k = 0; k < 5; k++) x[k] = s32[a + k];
-  uint32_t acc = 0u;
-#pragma unroll
-  for (int k = 0; k < 4; k++) {
-    uint32_t y = __funnelshift_r(x[k], x[k + 1], sh);
-    const int m = n - 4 * k;  // codes of this group inside the row
-    y = m >= 4 ? y : m <= 0 ? 0u : y & ((1u << (8 * m)) - 1u);
-    acc |= fold4(y) << (8 * k);
-  }
-  return acc;
-}
-
-// The same for int32 codes: 16 reads, rotated by lane across the banks.
-__device__ __forceinline__ uint32_t word_at(const uint32_t* s32, int o, int n,
-                                            const int32_t*) {
-  const uint32_t* s = s32 + (o >> 2);
-  const int rot = threadIdx.x & 15;
-  uint32_t acc = 0u;
-#pragma unroll
-  for (int k = 0; k < 16; k++) {
-    const int i = (k + rot) & 15;
-    if (i < n) acc |= s[i] << (2 * i);
-  }
-  return acc;
-}
-
-template <typename T>
-__device__ __forceinline__ void pack_tile(int64_t n_words, int L, int nw,
+// Word f of the packed batch.  VEC: L % 4 == 0 and codes aligned to four
+// codes, so a word's n codes (a multiple of 4) are n / 4 aligned groups.
+template <typename T, bool VEC>
+__device__ __forceinline__ void pack_word(int64_t n_words, int L, int nw,
                                           const T* __restrict__ codes,
                                           uint32_t* __restrict__ packed) {
-  extern __shared__ int4 smem4[];
-  const int64_t f0 = (int64_t)blockIdx.x * TILE;
-  const int64_t left = n_words - f0;
-  const int nt = left < TILE ? (int)left : TILE;  // words here
-  const int64_t r0 = f0 / nw;
-  const int w0 = (int)(f0 - r0 * nw);
-  const int64_t fl = f0 + nt - 1, rl = fl / nw;
-  const int wl = (int)(fl - rl * nw);
-  // the span of codes [c0, c1) and the aligned 16-byte chunks that hold it
-  const int64_t c0 = r0 * L + 16 * w0;
-  const int64_t c1 = rl * L + min(16 * wl + 16, L);
-  const uintptr_t lo = (uintptr_t)(codes + c0), hi = (uintptr_t)(codes + c1);
-  const uintptr_t a0 = lo & ~(uintptr_t)15;
-  const int n16 = (int)((hi - a0 + 15) >> 4);
-#if PACK_CP_ASYNC == 2
-  // every full chunk's load issued before any store
-  constexpr int PER = (16 * TILE * (int)sizeof(T) / 16 + THREADS) / THREADS;
-  uint32_t v[PER][4];
-#pragma unroll
-  for (int k = 0; k < PER; k++) {
-    const int c = threadIdx.x + k * THREADS;
-    const uintptr_t p = a0 + 16 * (uintptr_t)c;
-    if (c < n16 && p >= lo && p + 16 <= hi)
-      pa::load_words_evict_first<4>(reinterpret_cast<const uint32_t*>(p),
-                                    v[k]);
-  }
-#pragma unroll
-  for (int k = 0; k < PER; k++) {
-    const int c = threadIdx.x + k * THREADS;
-    const uintptr_t p = a0 + 16 * (uintptr_t)c;
-    if (c >= n16) continue;
-    if (p >= lo && p + 16 <= hi) {
-      smem4[c] = make_int4((int)v[k][0], (int)v[k][1], (int)v[k][2],
-                           (int)v[k][3]);
-    } else {
-      T* d = reinterpret_cast<T*>(smem4 + c);
-#pragma unroll
-      for (int e = 0; e < (int)(16 / sizeof(T)); e++) {
-        const uintptr_t q = p + e * sizeof(T);
-        if (q >= lo && q < hi) d[e] = *reinterpret_cast<const T*>(q);
-      }
-    }
-  }
-#else
-#if PACK_CP_ASYNC
-  const uint64_t pol = pa::evict_first_policy();
-#endif
-#pragma unroll 4
-  for (int c = threadIdx.x; c < n16; c += THREADS) {
-    const uintptr_t p = a0 + 16 * (uintptr_t)c;
-    if (p >= lo && p + 16 <= hi) {
-#if PACK_CP_ASYNC
-      const unsigned d = (unsigned)__cvta_generic_to_shared(smem4 + c);
-      asm volatile(
-          "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;"
-          :: "r"(d), "l"(p), "l"(pol) : "memory");
-#else
-      uint32_t v[4];
-      pa::load_words_evict_first<4>(reinterpret_cast<const uint32_t*>(p), v);
-      smem4[c] = make_int4((int)v[0], (int)v[1], (int)v[2], (int)v[3]);
-#endif
-    } else {  // a partial chunk at either end: its codes inside the span
-      T* d = reinterpret_cast<T*>(smem4 + c);
-#pragma unroll
-      for (int e = 0; e < (int)(16 / sizeof(T)); e++) {
-        const uintptr_t q = p + e * sizeof(T);
-        if (q >= lo && q < hi) d[e] = *reinterpret_cast<const T*>(q);
-      }
-    }
-  }
-#if PACK_CP_ASYNC
-  asm volatile("cp.async.wait_all;" ::: "memory");
-#endif
-#endif
-  __syncthreads();
-  const uint32_t* s32 = reinterpret_cast<const uint32_t*>(smem4);
-  const int head = (int)(lo - a0);  // bytes before code c0
-  const int t0 = threadIdx.x * WPT;
-  uint32_t out[WPT];
-#pragma unroll
-  for (int q = 0; q < WPT; q++) {
-    // word t0 + q of the tile: row r0 + dr, word w of that row
-    const int t = w0 + t0 + q;
-    const int dr = t / nw, w = t - dr * nw;
-    const int e = dr * L + 16 * (w - w0);  // its first code, from c0
-    out[q] = t0 + q < nt
-                 ? word_at(s32, head + e * (int)sizeof(T), min(16, L - 16 * w),
-                           codes)
-                 : 0u;
-  }
-  uint32_t* dst = packed + f0 + t0;
-  if (WPT == 4 && t0 + 4 <= nt) {
-    *reinterpret_cast<uint4*>(dst) = make_uint4(out[0], out[WPT > 1 ? 1 : 0],
-                                                out[WPT > 2 ? 2 : 0],
-                                                out[WPT > 3 ? 3 : 0]);
-  } else {
-#pragma unroll
-    for (int q = 0; q < WPT; q++)
-      if (t0 + q < nt) dst[q] = out[q];
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-    pack_u8_kernel(int64_t n_words, int L, int nw,
-                   const uint8_t* __restrict__ codes,
-                   uint32_t* __restrict__ packed) {
-  pack_tile(n_words, L, nw, codes, packed);
-}
-
-__global__ void __launch_bounds__(THREADS)
-    pack_i32_kernel(int64_t n_words, int L, int nw,
-                    const int32_t* __restrict__ codes,
-                    uint32_t* __restrict__ packed) {
-  pack_tile(n_words, L, nw, codes, packed);
-}
-
-// direct: a thread per word, its codes straight from device memory, in
-// 16-byte (int32) or 4-byte (uint8) loads where L % 4 == 0 and the base
-// allows, else one by one
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(256)
-    pack_direct_kernel(int64_t n_words, int L, int nw,
-                       const T* __restrict__ codes,
-                       uint32_t* __restrict__ packed) {
-#if PACK_QUAD
-  if (VEC && sizeof(T) == 4) {
-    // a quad of lanes per word, lane q its codes 4q..4q+3 in one 16-byte
-    // load: a warp's loads are 512 contiguous bytes
-    const int64_t g = (int64_t)blockIdx.x * 256 + threadIdx.x;
-    const int64_t f = g >> 2;
-    const int q = (int)(g & 3);
-    uint32_t part = 0u;
-    if (f < n_words) {
-      const int64_t r = f / nw;
-      const int w = (int)(f - r * nw);
-      const int n = min(16, L - 16 * w);
-      if (4 * q < n) {
-        uint32_t x[4];
-#if PACK_HINT
-        pa::load_words_evict_first<4>(
-            reinterpret_cast<const uint32_t*>(codes + r * L + 16 * w) + 4 * q,
-            x);
-#else
-        pa::load_words<4>(
-            reinterpret_cast<const uint32_t*>(codes + r * L + 16 * w) + 4 * q,
-            x);
-#endif
-#pragma unroll
-        for (int j = 0; j < 4; j++) part |= x[j] << (2 * (4 * q + j));
-      }
-    }
-    part |= __shfl_xor_sync(0xffffffffu, part, 1);
-    part |= __shfl_xor_sync(0xffffffffu, part, 2);
-    if (q == 0 && f < n_words) packed[f] = part;
-    return;
-  }
-#endif
-  const int64_t f = (int64_t)blockIdx.x * 256 + threadIdx.x;
+  const int64_t f = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (f >= n_words) return;
   const int64_t r = f / nw;
   const int w = (int)(f - r * nw);
@@ -274,12 +57,7 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
     for (int k = 0; k < 4; k++)
       if (4 * k < n)
-#if PACK_HINT
-        pa::load_words_evict_first<4>(
-            reinterpret_cast<const uint32_t*>(p) + 4 * k, x[k]);
-#else
         pa::load_words<4>(reinterpret_cast<const uint32_t*>(p) + 4 * k, x[k]);
-#endif
 #pragma unroll
     for (int k = 0; k < 4; k++)
       if (4 * k < n)
@@ -290,12 +68,7 @@ __global__ void __launch_bounds__(256)
 #pragma unroll
     for (int k = 0; k < 4; k++)
       if (4 * k < n)
-#if PACK_HINT
-        pa::load_words_evict_first<1>(
-            reinterpret_cast<const uint32_t*>(p + 4 * k), x[k]);
-#else
         pa::load_words<1>(reinterpret_cast<const uint32_t*>(p + 4 * k), x[k]);
-#endif
 #pragma unroll
     for (int k = 0; k < 4; k++)
       if (4 * k < n) acc |= fold4(x[k][0]) << (8 * k);
@@ -307,28 +80,33 @@ __global__ void __launch_bounds__(256)
   packed[f] = acc;
 }
 
-template <typename T>
-void start_direct(int64_t n, int L, int nw, const T* codes, uint32_t* packed,
-                  cudaStream_t st) {
-  const int blocks = (int)(((PACK_QUAD && sizeof(T) == 4 ? 4 : 1) * n + 255)
-                           / 256);
-  const bool vec = L % 4 == 0 && (uintptr_t)codes % (4 * sizeof(T)) == 0;
-  if (vec)
-    pack_direct_kernel<T, true><<<blocks, 256, 0, st>>>(n, L, nw, codes,
-                                                        packed);
-  else
-    pack_direct_kernel<T, false><<<blocks, 256, 0, st>>>(n, L, nw, codes,
-                                                         packed);
+// one kernel name per entry (the trace tells them apart)
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+    pack_u8_kernel(int64_t n_words, int L, int nw,
+                   const uint8_t* __restrict__ codes,
+                   uint32_t* __restrict__ packed) {
+  pack_word<uint8_t, VEC>(n_words, L, nw, codes, packed);
 }
 
-void start(int blocks, int smem, cudaStream_t st, int64_t n, int L, int nw,
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+    pack_i32_kernel(int64_t n_words, int L, int nw,
+                    const int32_t* __restrict__ codes,
+                    uint32_t* __restrict__ packed) {
+  pack_word<int32_t, VEC>(n_words, L, nw, codes, packed);
+}
+
+template <bool VEC>
+void start(int blocks, cudaStream_t st, int64_t n, int L, int nw,
            const uint8_t* codes, uint32_t* packed) {
-  pack_u8_kernel<<<blocks, THREADS, smem, st>>>(n, L, nw, codes, packed);
+  pack_u8_kernel<VEC><<<blocks, THREADS, 0, st>>>(n, L, nw, codes, packed);
 }
 
-void start(int blocks, int smem, cudaStream_t st, int64_t n, int L, int nw,
+template <bool VEC>
+void start(int blocks, cudaStream_t st, int64_t n, int L, int nw,
            const int32_t* codes, uint32_t* packed) {
-  pack_i32_kernel<<<blocks, THREADS, smem, st>>>(n, L, nw, codes, packed);
+  pack_i32_kernel<VEC><<<blocks, THREADS, 0, st>>>(n, L, nw, codes, packed);
 }
 
 template <typename T>
@@ -339,19 +117,17 @@ int launch(int device, int B, int L, const T* codes, uint32_t* packed,
   const int nw = (L + 15) / 16;
   const int64_t n = (int64_t)B * nw;
   if (n == 0) return 0;
-#if PACK_DIRECT
-  start_direct(n, L, nw, codes, packed, (cudaStream_t)stream);
-#else
-  start((int)((n + TILE - 1) / TILE), smem_bytes(sizeof(T)),
-        (cudaStream_t)stream, n, L, nw, codes, packed);
-#endif
+  const int blocks = (int)((n + THREADS - 1) / THREADS);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (L % 4 == 0 && (uintptr_t)codes % (4 * sizeof(T)) == 0)
+    start<true>(blocks, st, n, L, nw, codes, packed);
+  else
+    start<false>(blocks, st, n, L, nw, codes, packed);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// packed must be 16-byte aligned (the wrapper allocates it); codes may lie
-// at any address.
 extern "C" int pa_pack_reads_u8(int device, int B, int L,
                                 const uint8_t* codes, uint32_t* packed,
                                 void* stream) {

@@ -520,14 +520,10 @@ PACK_ENTRIES = {torch.uint8: "pa_pack_reads_u8",
 def _pack(codes: torch.Tensor, dtype) -> torch.Tensor:
     _require_cuda(codes)
     dev = codes.device
-    if codes.dim() != 2:
-        raise ValueError(f"codes: shape {tuple(codes.shape)}, expected "
-                         "[B, L]")
     B, L = codes.shape
+    # any base address: the kernel takes wide loads only where aligned
     _check("codes", codes, dtype, (B, L), dev)
     lib = _load()
-    # codes may lie at any address; packed, which the kernel stores 16 bytes
-    # at a time, is a fresh allocation
     packed = torch.empty((B, (L + 15) // 16), dtype=torch.int32, device=dev)
     rc = getattr(lib, PACK_ENTRIES[dtype])(dev.index, B, L, codes.data_ptr(),
                                            packed.data_ptr(), _stream(dev))

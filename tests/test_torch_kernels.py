@@ -671,7 +671,7 @@ def test_multi_device_kernels_match_plain_on_cuda(S, cap_scale):
     torch.cuda.synchronize()
 
 
-PACK_TILE = 256  # csrc/pack.cu: output words per block
+PACK_BLOCK = 256  # csrc/pack.cu: a block's threads, a word each
 
 
 def _pack_check(B, L, dtype, device):
@@ -679,8 +679,9 @@ def _pack_check(B, L, dtype, device):
     0-3 (also against the host pack) and 0-255 (not masked to two bits:
     high bits bleed into the next bases' places), on a tensor of its own
     and on contiguous views whose base lies 1 to 15 bytes off 16-byte
-    alignment (the kernel reads codes at any address); each call adds one
-    to its own entry's counter and leaves the other's alone."""
+    alignment (the kernel reads codes at any address, in wide loads only
+    where aligned); each call adds one to its own entry's counter and
+    leaves the other's alone."""
     rng = np.random.default_rng(1000 * B + L)
     ours = {np.uint8: kernels.pack_reads_u8_cuda,
             np.int32: kernels.pack_reads_i32_cuda}
@@ -717,11 +718,11 @@ def _pack_check(B, L, dtype, device):
 @pytest.mark.parametrize("B", [1, 63, 1000])
 def test_pack_entries_match_plain_on_cuda(B, L, dtype):
     """Both K6 entries at the widths of the tests and the kpart path, for
-    one read and for batches that end inside a block's tile of PACK_TILE
-    words."""
+    one read and for batches whose last block of PACK_BLOCK words is
+    partial."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    assert B * ((L + 15) // 16) % PACK_TILE or B == 1
+    assert B * ((L + 15) // 16) % PACK_BLOCK or B == 1
     _pack_check(B, L, dtype, "cuda")
 
 
