@@ -20,9 +20,9 @@
 // int32, 4 bytes each at uint8, whose four codes are folded into the word
 // with three shifts and masks; otherwise one code at a time.  Loads are
 // plain: the codes were just copied to the card, and the L2 keeps part of
-// them; an evict-first hint cost 6-10% (PERF.md, PR 10).  Staging a block's
-// span in shared memory first (in 16-byte loads or cp.async) was slower at
-// both widths: a block's loads and its packing do not overlap.
+// them; an evict-first hint was slower (PERF.md, section 6).  Staging a
+// block's span in shared memory first (in 16-byte loads or cp.async) was
+// slower at both widths: a block's loads and its packing do not overlap.
 
 #include <cstdint>
 #include <cuda_runtime.h>
