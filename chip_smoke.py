@@ -799,7 +799,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    from pseudoaligner_torch import cli
+    from pseudoaligner_torch import cli, spans
     from pseudoaligner_torch.config import AlignerConfig
     from pseudoaligner_torch.golden import (
         golden_oracle,
@@ -877,9 +877,11 @@ def main(argv=None) -> int:
 
     def serve_init(mode: str):
         cfg = cli.serving_config(20, BATCH, READ_LEN, seed_index=mode)
+        spans.reset()
         t = time.time()
         al = Pseudoaligner(image, cfg, device="cuda")
         torch.cuda.synchronize()
+        split = spans.snapshot()["spans"]
         # each storage once (the MPHF's paired bit and rank words) is the
         # arrays' bytes: the paired layout adds none
         arrays = sum(getattr(al.dev, f.name).numel() * 4
@@ -888,7 +890,10 @@ def main(argv=None) -> int:
             raise AssertionError(f"[{mode}] upload {al.dev.nbytes()} B, its "
                                  f"arrays {arrays} B")
         say(f"[{mode}] serve init (device index build + upload) "
-            f"{time.time() - t:.1f} s; index device bytes {al.dev.nbytes()}")
+            f"{time.time() - t:.1f} s; index device bytes {al.dev.nbytes()}"
+            "; spans, s (self s): " + ", ".join(
+                f"{k} {v['total_s']:.3f} ({v['self_s']:.3f})"
+                for k, v in sorted(split.items())))
         return cfg, al
 
     def full_shape(meta):
@@ -956,17 +961,21 @@ def main(argv=None) -> int:
         with open(os.devnull, "wb") as sink:
             al.emit_fastq(fq_path, sink)  # warm the host caches
             torch.cuda.synchronize()
-            al.phase_times = {}
+            spans.reset()
             t = time.time()
             n_emit, _ = al.emit_fastq(fq_path, sink)
             dt = time.time() - t
             if n_emit != n_reads:
                 raise AssertionError(f"emitted {n_emit} of {n_reads} reads")
+            snap = spans.snapshot()
             say(f"[{mode}] serving emit loop (FASTQ parse to records, no "
                 f"set-up): {n_reads / dt:.0f} reads/s, {dt * 1000 / n_b:.2f}"
-                " ms per batch; host phases, ms per batch: " + ", ".join(
-                    f"{k} {v * 1000 / n_b:.2f}"
-                    for k, v in sorted(al.phase_times.items())))
+                " ms per batch; spans, ms per batch: " + ", ".join(
+                    f"{k} {v['total_s'] * 1000 / n_b:.2f}"
+                    for k, v in sorted(snap["spans"].items()))
+                + "; per batch: " + ", ".join(
+                    f"{k} {snap['counters'].get(k, 0) / n_b:.1f}"
+                    for k in ("pa.pinned_allocs", "pa.pinned_bytes")))
             wall, events = traced(lambda: al.emit_fastq(fq_path, sink))
         per = {"H2D": 0.0, "K1": 0.0, "K2": 0.0, "D2H": 0.0, "other": 0.0}
         for name, s0, e0 in events:

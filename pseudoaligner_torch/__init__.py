@@ -35,6 +35,10 @@ PyTorch and hand-written CUDA kernels for NVIDIA Hopper:
                      dry run
     cli              `index`, single-end and paired `map`, `count`,
                      `mappability`, `idxstats`, `inspect`
+    spans            the program's named spans and counters, one registry
+                     per process (set-up parts, the step, the record
+                     path's phases, pinned allocations), read by the
+                     benchmark's metrics and chip_smoke.py
 
 The framework-free host layers (config, dna, serde, index building, the
 FASTQ and FASTA readers, the native C++ helpers, tcc, pipeline, golden) are

@@ -19,13 +19,12 @@ the host above it.
 from __future__ import annotations
 
 import dataclasses
-import os
-import time
 import weakref
 
 import numpy as np
 import torch
 
+from .. import spans
 from ..config import AlignerConfig
 from ..index.image import IndexImage
 from ..io.fastq import FastqReader, ReadBatch
@@ -47,6 +46,12 @@ _SENT = np.int64(1) << 40
 def _host(t) -> np.ndarray:
     """A result field as a host numpy array (waits for its device)."""
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _count_pinned(*tensors) -> None:
+    """Count pinned host buffers allocated for one batch."""
+    spans.count("pa.pinned_allocs", len(tensors))
+    spans.count("pa.pinned_bytes", sum(t.nbytes for t in tensors))
 
 
 def _csr_rows(flat: np.ndarray, start: np.ndarray, idxs: np.ndarray):
@@ -274,40 +279,39 @@ class Pseudoaligner:
         """`map_step(codes, lens) -> MapResult` plugs an external engine
         under the serving surface; the index is then not built here, and
         `meta` must be the engine's."""
-        if config is None:
-            config = AlignerConfig(k=image.k)
-        if config.k != image.k:
-            raise ValueError(f"config k={config.k} != index k={image.k}")
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "device 'cuda' requested but torch.cuda.is_available() "
-                    "is False; pass device='cpu' for the plain PyTorch path")
-            if self.device.index is None:
-                self.device = torch.device("cuda",
-                                           torch.cuda.current_device())
-        self.image = image
-        self.config = config
-        self._map_step = map_step
-        if map_step is None:
-            if meta is not None:
-                raise ValueError("meta is only used together with map_step")
-            dev_np, self.meta = device_index_from_image(image, config)
-            self.dev = upload(dev_np, self.device, serving=self.meta)
-        else:
-            if meta is None:
-                raise ValueError("map_step requires the engine's meta")
-            self.meta = meta
-        # host-side EC intersection memo for the CSR path
-        self._ec_memo: dict[tuple[int, ...], list[int]] = {}
-        # id(ec_distinct) -> (weakref, event, pinned dist, pinned cov) of
-        # the compact outputs' device-to-host copies in flight
-        self._fetches: dict[int, tuple] = {}
-        # opt-in serving-phase timers (PA_TIMERS=1)
-        self.phase_times: dict[str, float] | None = (
-            {} if os.environ.get("PA_TIMERS") else None
-        )
+        with spans.span("pa.serve_init"):
+            if config is None:
+                config = AlignerConfig(k=image.k)
+            if config.k != image.k:
+                raise ValueError(f"config k={config.k} != index k={image.k}")
+            self.device = torch.device(device)
+            if self.device.type == "cuda":
+                if not torch.cuda.is_available():
+                    raise RuntimeError(
+                        "device 'cuda' requested but "
+                        "torch.cuda.is_available() is False; pass "
+                        "device='cpu' for the plain PyTorch path")
+                if self.device.index is None:
+                    self.device = torch.device("cuda",
+                                               torch.cuda.current_device())
+            self.image = image
+            self.config = config
+            self._map_step = map_step
+            if map_step is None:
+                if meta is not None:
+                    raise ValueError(
+                        "meta is only used together with map_step")
+                dev_np, self.meta = device_index_from_image(image, config)
+                self.dev = upload(dev_np, self.device, serving=self.meta)
+            else:
+                if meta is None:
+                    raise ValueError("map_step requires the engine's meta")
+                self.meta = meta
+            # host-side EC intersection memo for the CSR path
+            self._ec_memo: dict[tuple[int, ...], list[int]] = {}
+            # id(ec_distinct) -> (weakref, event, pinned dist, pinned cov) of
+            # the compact outputs' device-to-host copies in flight
+            self._fetches: dict[int, tuple] = {}
 
     def close(self) -> None:
         """Release the lazily-created worker pool and the re-map index."""
@@ -318,12 +322,6 @@ class Pseudoaligner:
         for attr in ("_remap_meta", "_remap_dev"):
             if hasattr(self, attr):
                 delattr(self, attr)
-
-    def _tick(self, name: str, t0: float) -> None:
-        if self.phase_times is not None:
-            self.phase_times[name] = (
-                self.phase_times.get(name, 0.0) + time.time() - t0
-            )
 
     # ------------------------------------------------------------------
     # device step
@@ -336,8 +334,10 @@ class Pseudoaligner:
             pack_reads_host(np.asarray(codes, dtype=np.uint8)).view(np.int32))
         lens_t = torch.from_numpy(np.ascontiguousarray(lens, dtype=np.int32))
         if self.device.type == "cuda":
-            packed = packed.pin_memory().to(self.device, non_blocking=True)
-            lens_t = lens_t.pin_memory().to(self.device, non_blocking=True)
+            packed, lens_t = packed.pin_memory(), lens_t.pin_memory()
+            _count_pinned(packed, lens_t)
+            packed = packed.to(self.device, non_blocking=True)
+            lens_t = lens_t.to(self.device, non_blocking=True)
         return map_batch_packed(meta, dev, packed, lens_t)
 
     def map_batch_device(self, codes: np.ndarray, lens: np.ndarray) -> MapResult:
@@ -355,6 +355,7 @@ class Pseudoaligner:
                                pin_memory=True)
             cov = torch.empty(result.coverage.shape,
                               dtype=result.coverage.dtype, pin_memory=True)
+            _count_pinned(dist, cov)
             dist.copy_(result.ec_distinct, non_blocking=True)
             cov.copy_(result.coverage, non_blocking=True)
             ev = torch.cuda.Event()
@@ -498,17 +499,15 @@ class Pseudoaligner:
         an opaque state for emit_finish.  With `defer_group=True` the
         grouping is left to `emit_prepare_group`."""
         n = batch.n_reads
-        _t = time.time()
-        dist, cov = self._fetch_compact(result)
-        self._tick("prep.fetch", _t)
-        _t = time.time()
-        cov = cov[:n].astype(np.int32)
-        dist = dist[:n]
-        # dispatch the overflow re-map first so it overlaps the host work
-        flagged = (dist[:, -1] == -2) | (dist[:, -1] == -3)
-        overflow_rows = np.nonzero(flagged)[0].tolist()
-        remap_fut = self._remap_dispatch(batch, overflow_rows)
-        self._tick("prep.remap_dispatch", _t)
+        with spans.span("pa.prep.fetch"):
+            dist, cov = self._fetch_compact(result)
+        with spans.span("pa.prep.remap_dispatch"):
+            cov = cov[:n].astype(np.int32)
+            dist = dist[:n]
+            # dispatch the overflow re-map first so it overlaps the host work
+            flagged = (dist[:, -1] == -2) | (dist[:, -1] == -3)
+            overflow_rows = np.nonzero(flagged)[0].tolist()
+            remap_fut = self._remap_dispatch(batch, overflow_rows)
         st = {
             "batch": batch,
             "tcc": tcc,
@@ -529,55 +528,53 @@ class Pseudoaligner:
         n = st["n"]
         dist = st["dist"]
         flagged = st["flagged"]
-        _t = time.time()
-        # most rows are single-class ([e, -1, ...]): group those on one
-        # int column and only the multi-class minority by full rows
-        # (flagged rows stay in the full-row group so their markers
-        # survive)
-        single = (
-            (dist[:, 1] == -1) & ~flagged
-            if dist.shape[1] >= 2
-            else np.zeros(n, bool)
-        )
-        u1, inv1 = np.unique(dist[single, 0], return_inverse=True)
-        multi = dist[~single]
-        u2, inv2 = _group_rows(multi)
-        inv = np.empty(n, dtype=np.int64)
-        inv[single] = inv1
-        inv[~single] = inv2 + len(u1)
-        self._tick("prep.group", _t)
-        _t = time.time()
+        with spans.span("pa.prep.group"):
+            # most rows are single-class ([e, -1, ...]): group those on one
+            # int column and only the multi-class minority by full rows
+            # (flagged rows stay in the full-row group so their markers
+            # survive)
+            single = (
+                (dist[:, 1] == -1) & ~flagged
+                if dist.shape[1] >= 2
+                else np.zeros(n, bool)
+            )
+            u1, inv1 = np.unique(dist[single, 0], return_inverse=True)
+            multi = dist[~single]
+            u2, inv2 = _group_rows(multi)
+            inv = np.empty(n, dtype=np.int64)
+            inv[single] = inv1
+            inv[~single] = inv2 + len(u1)
 
-        # single-class groups are vectorized CSR slices; multi-class
-        # groups are canonicalized and batch-intersected in C++;
-        # overflow-marker groups stay None-equivalent (none_mask) and get
-        # per-read overrides in emit_finish
-        eo = np.asarray(self.image.ec_offsets, dtype=np.int64)
-        et = np.asarray(self.image.ec_txs, dtype=np.uint32)
-        m1, m2 = len(u1), len(u2)
-        none_mask = np.zeros(m1 + m2, dtype=bool)
-        ids1 = u1.astype(np.int64)
-        n_ec = len(eo) - 1
-        eo_pad = np.append(eo, eo[-1])  # row n_ec is empty
-        flat1, offs1 = _csr_rows(
-            et, eo_pad, np.where(ids1 >= 0, ids1, n_ec)
-        )
-        lens1 = np.diff(offs1)
-        if m2:
-            rowsm = u2.astype(np.int64)
-            ovr2 = (rowsm[:, -1] == -2) | (rowsm[:, -1] == -3)
-            none_mask[m1:] = ovr2
-            vals = _canon_id_rows(np.where(rowsm >= 0, rowsm, _SENT))
-            vals[ovr2] = _SENT  # overflow groups contribute nothing here
-            flat2, lens2 = self._intersect_rows(vals)
-        else:
-            flat2 = np.zeros(0, np.uint32)
-            lens2 = np.zeros(0, np.int64)
+        with spans.span("pa.prep.siglists"):
+            # single-class groups are vectorized CSR slices; multi-class
+            # groups are canonicalized and batch-intersected in C++;
+            # overflow-marker groups stay None-equivalent (none_mask) and get
+            # per-read overrides in emit_finish
+            eo = np.asarray(self.image.ec_offsets, dtype=np.int64)
+            et = np.asarray(self.image.ec_txs, dtype=np.uint32)
+            m1, m2 = len(u1), len(u2)
+            none_mask = np.zeros(m1 + m2, dtype=bool)
+            ids1 = u1.astype(np.int64)
+            n_ec = len(eo) - 1
+            eo_pad = np.append(eo, eo[-1])  # row n_ec is empty
+            flat1, offs1 = _csr_rows(
+                et, eo_pad, np.where(ids1 >= 0, ids1, n_ec)
+            )
+            lens1 = np.diff(offs1)
+            if m2:
+                rowsm = u2.astype(np.int64)
+                ovr2 = (rowsm[:, -1] == -2) | (rowsm[:, -1] == -3)
+                none_mask[m1:] = ovr2
+                vals = _canon_id_rows(np.where(rowsm >= 0, rowsm, _SENT))
+                vals[ovr2] = _SENT  # overflow groups contribute nothing here
+                flat2, lens2 = self._intersect_rows(vals)
+            else:
+                flat2 = np.zeros(0, np.uint32)
+                lens2 = np.zeros(0, np.int64)
 
-        sig_start = np.zeros(m1 + m2 + 1, dtype=np.int64)
-        np.cumsum(np.concatenate([lens1, lens2]), out=sig_start[1:])
-        sig_flat = np.concatenate([flat1, flat2])
-        self._tick("prep.siglists", _t)
+            sig_start = np.zeros(m1 + m2 + 1, dtype=np.int64)
+            np.cumsum(np.concatenate([lens1, lens2]), out=sig_start[1:])
+            sig_flat = np.concatenate([flat1, flat2])
 
         # drop the inputs only on success, then set the completion marker
         del st["dist"], st["flagged"]
@@ -602,65 +599,62 @@ class Pseudoaligner:
         sig_flat = state["sig_flat"]
         overflow_rows = state["overflow_rows"]
 
-        _t = time.time()
-        overflow_res = self._remap_collect(state["remap_fut"])
-        self._tick("fin.remap_collect", _t)
-        _t = time.time()
-        overflow_eq = {i: r[0] for i, r in overflow_res.items()}
-        for i in overflow_rows:
-            cov[i] = overflow_res[i][1]  # capped lanes: exact coverage
-
-        sig_of_read = np.where(none_mask[inv], np.int64(-1), inv)
-        ovr_rows = np.asarray(overflow_rows, dtype=np.int64)
-        ovr_start = np.zeros(len(ovr_rows) + 1, dtype=np.int64)
-        if len(ovr_rows):
-            np.cumsum(
-                np.array([len(overflow_eq[i]) for i in overflow_rows],
-                         dtype=np.int64),
-                out=ovr_start[1:],
-            )
-        ovr_ids = (
-            np.concatenate([overflow_eq[i] for i in overflow_rows])
-            if len(ovr_rows)
-            else np.zeros(0, np.uint32)
-        )
-
-        ids_concat, id_offs = _concat_ids_for_emit(batch)
-
-        # per-transcript count deltas (the multi-process merge,
-        # parallel/multihost.py): each record's classes count once, groups
-        # sig_counts[g] per transcript of their list, overflow rows 1 each;
-        # the ordered finish checkpoints them with the write offset
-        tx_sink = state.get("tx_sink")
-        if tx_sink is not None:
-            gcounts = np.bincount(inv, minlength=len(none_mask))
-            w = np.repeat(
-                np.where(none_mask, 0, gcounts).astype(np.int64),
-                np.diff(sig_start),
-            )
-            tx_sink.append((sig_flat[: int(sig_start[-1])], w))
-            if len(ovr_ids):
-                tx_sink.append(
-                    (ovr_ids, np.ones(len(ovr_ids), dtype=np.int64)))
-
-        if tcc is not None:
-            tcc.n_reads += n
-            sig_counts = np.bincount(inv, minlength=len(none_mask))
-            for si in sig_counts.nonzero()[0]:
-                if none_mask[si]:
-                    continue
-                tcc.add_group(sig_flat[sig_start[si] : sig_start[si + 1]],
-                              int(sig_counts[si]))
+        with spans.span("pa.fin.remap_collect"):
+            overflow_res = self._remap_collect(state["remap_fut"])
+        with spans.span("pa.fin.patch"):
+            overflow_eq = {i: r[0] for i, r in overflow_res.items()}
             for i in overflow_rows:
-                tcc.add_group(overflow_eq[i].tolist())
+                cov[i] = overflow_res[i][1]  # capped lanes: exact coverage
 
-        self._tick("fin.patch", _t)
-        _t = time.time()
-        data = _native.emit_records_sig(
-            cov, self.config.read_coverage_threshold, ids_concat, id_offs,
-            sig_of_read, sig_start, sig_flat, ovr_rows, ovr_start, ovr_ids,
-        )
-        self._tick("fin.emit", _t)
+            sig_of_read = np.where(none_mask[inv], np.int64(-1), inv)
+            ovr_rows = np.asarray(overflow_rows, dtype=np.int64)
+            ovr_start = np.zeros(len(ovr_rows) + 1, dtype=np.int64)
+            if len(ovr_rows):
+                np.cumsum(
+                    np.array([len(overflow_eq[i]) for i in overflow_rows],
+                             dtype=np.int64),
+                    out=ovr_start[1:],
+                )
+            ovr_ids = (
+                np.concatenate([overflow_eq[i] for i in overflow_rows])
+                if len(ovr_rows)
+                else np.zeros(0, np.uint32)
+            )
+
+            ids_concat, id_offs = _concat_ids_for_emit(batch)
+
+            # per-transcript count deltas (the multi-process merge,
+            # parallel/multihost.py): each record's classes count once, groups
+            # sig_counts[g] per transcript of their list, overflow rows 1 each;
+            # the ordered finish checkpoints them with the write offset
+            tx_sink = state.get("tx_sink")
+            if tx_sink is not None:
+                gcounts = np.bincount(inv, minlength=len(none_mask))
+                w = np.repeat(
+                    np.where(none_mask, 0, gcounts).astype(np.int64),
+                    np.diff(sig_start),
+                )
+                tx_sink.append((sig_flat[: int(sig_start[-1])], w))
+                if len(ovr_ids):
+                    tx_sink.append(
+                        (ovr_ids, np.ones(len(ovr_ids), dtype=np.int64)))
+
+            if tcc is not None:
+                tcc.n_reads += n
+                sig_counts = np.bincount(inv, minlength=len(none_mask))
+                for si in sig_counts.nonzero()[0]:
+                    if none_mask[si]:
+                        continue
+                    tcc.add_group(sig_flat[sig_start[si] : sig_start[si + 1]],
+                                  int(sig_counts[si]))
+                for i in overflow_rows:
+                    tcc.add_group(overflow_eq[i].tolist())
+
+        with spans.span("pa.fin.emit"):
+            data = _native.emit_records_sig(
+                cov, self.config.read_coverage_threshold, ids_concat, id_offs,
+                sig_of_read, sig_start, sig_flat, ovr_rows, ovr_start, ovr_ids,
+            )
         return data
 
     def emit_fastq(self, path: str, out, skip_reads: int = 0, tcc=None,
@@ -910,32 +904,30 @@ class Pseudoaligner:
         n = len(nn)
         if n == 0:
             return []
-        _t0 = time.time()
-        ec = self.image.node_ec
-        cap = max(1, int(nn.max()))
-        nodes = nodes[:, :cap]
-        mask = np.arange(cap)[None, :] < nn[:, None]
-        vals = _canon_id_rows(
-            np.where(
-                mask & (nodes >= 0),
-                ec[np.clip(nodes, 0, None)].astype(np.int64),
-                _SENT,
+        with spans.span("pa.eqrows.canon"):
+            ec = self.image.node_ec
+            cap = max(1, int(nn.max()))
+            nodes = nodes[:, :cap]
+            mask = np.arange(cap)[None, :] < nn[:, None]
+            vals = _canon_id_rows(
+                np.where(
+                    mask & (nodes >= 0),
+                    ec[np.clip(nodes, 0, None)].astype(np.int64),
+                    _SENT,
+                )
             )
-        )
-        # trim to the widest distinct-id count, then let narrow rows take
-        # _group_rows' packed-int64 fast path
-        width = max(1, int((vals < _SENT).sum(axis=1).max()))
-        vals = vals[:, :width]
-        bound = np.int64(len(self.image.ec_offsets))
-        uniq, gid = _group_rows(np.where(vals == _SENT, bound, vals))
-        sv_head = np.where(uniq == bound, _SENT, uniq)
-        self._tick("eqrows.canon", _t0)
-        _t0 = time.time()
-        flat, lens = self._intersect_rows(sv_head)
-        offs = np.zeros(len(lens) + 1, np.int64)
-        np.cumsum(lens, out=offs[1:])
-        mats = [flat[offs[i] : offs[i + 1]] for i in range(len(lens))]
-        self._tick("eqrows.mats", _t0)
+            # trim to the widest distinct-id count, then let narrow rows take
+            # _group_rows' packed-int64 fast path
+            width = max(1, int((vals < _SENT).sum(axis=1).max()))
+            vals = vals[:, :width]
+            bound = np.int64(len(self.image.ec_offsets))
+            uniq, gid = _group_rows(np.where(vals == _SENT, bound, vals))
+            sv_head = np.where(uniq == bound, _SENT, uniq)
+        with spans.span("pa.eqrows.mats"):
+            flat, lens = self._intersect_rows(sv_head)
+            offs = np.zeros(len(lens) + 1, np.int64)
+            np.cumsum(lens, out=offs[1:])
+            mats = [flat[offs[i] : offs[i + 1]] for i in range(len(lens))]
         return [mats[g] for g in gid]
 
     def _remap_collect(self, futures) -> dict:
@@ -1136,9 +1128,8 @@ class Pseudoaligner:
             return concat, o
 
         while True:
-            _t = time.time()
-            b1, b2 = next(pairs)
-            self._tick("pread", _t)
+            with spans.span("pa.pread"):
+                b1, b2 = next(pairs)
             # whole-batch mismatches must error too (zip would silently
             # drop the longer file's tail)
             if (b1 is None) != (b2 is None) or (
@@ -1154,19 +1145,18 @@ class Pseudoaligner:
                         raise err
                 raise ValueError("paired FASTQs have different read counts")
             if b1 is not None:
-                _t = time.time()
-                codes = np.concatenate([b1.codes, b2.codes], axis=0)
-                lens = np.concatenate([b1.lens, b2.lens])
-                # record ids come from b1 (emit_finish_paired) and the
-                # remap path reads only codes/lens: the combined batch
-                # needs just its row count, so the ids are not joined
-                _, o1 = _raw_ids(b1)
-                _, o2 = _raw_ids(b2)
-                combined = ReadBatch(
-                    codes=codes, lens=lens, ids_concat=b"",
-                    id_offs=np.concatenate([o1, o2[1:] + o1[-1]]),
-                )
-                self._tick("pcombine", _t)
+                with spans.span("pa.pcombine"):
+                    codes = np.concatenate([b1.codes, b2.codes], axis=0)
+                    lens = np.concatenate([b1.lens, b2.lens])
+                    # record ids come from b1 (emit_finish_paired) and the
+                    # remap path reads only codes/lens: the combined batch
+                    # needs just its row count, so the ids are not joined
+                    _, o1 = _raw_ids(b1)
+                    _, o2 = _raw_ids(b2)
+                    combined = ReadBatch(
+                        codes=codes, lens=lens, ids_concat=b"",
+                        id_offs=np.concatenate([o1, o2[1:] + o1[-1]]),
+                    )
                 fut = self.map_batch_device(codes, lens)
             if b1 is None:
                 break
@@ -1184,164 +1174,162 @@ class Pseudoaligner:
         from ..io import native as _native
 
         h = st["n"] // 2
-        _t = time.time()
-        ov = self._remap_collect(st["remap_fut"])
-        self._tick("pfin.remap_collect", _t)
-        _t = time.time()
-        cov_all = st["cov"]
-        for i in st["overflow_rows"]:
-            cov_all[i] = ov[i][1]
-        cov1 = cov_all[:n1]
-        cov2 = cov_all[h : h + n1]
-        cov = cov1 + cov2
-        inv = st["inv"]
-        inv1 = inv[:n1]
-        inv2 = inv[h : h + n1]
-        none_mask = st["none_mask"]
-        sf, ss = st["sig_flat"], st["sig_start"]
-        has_ovr = none_mask[inv1] | none_mask[inv2]
-        m1 = cov1 > 0
-        m2 = cov2 > 0
-        case = m1.astype(np.int64) * 2 + m2.astype(np.int64)
-        key1 = np.where(m1, inv1, -1)
-        key2 = np.where(m2, inv2, -1)
-        simple = ~has_ovr
-        uk, kinv = _group_rows(np.stack([case, key1, key2], axis=1)[simple])
-        self._tick("pfin.group", _t)
-        _t = time.time()
-        U = len(uk)
-        c_u, g1_u, g2_u = uk[:, 0], uk[:, 1], uk[:, 2]
-        both = c_u == 3
-        only1 = c_u == 2
-        only2 = c_u == 1
-        lens_u = np.zeros(U, np.int64)
-        flat3 = np.zeros(0, np.uint32)
-        offs3 = np.zeros(1, np.int64)
-        if both.any():
-            fa, oa = _csr_rows(sf, ss, g1_u[both])
-            fb, ob = _csr_rows(sf, ss, g2_u[both])
-            try:
-                from ..ops.native import intersect_pairs
-
-                flat3, offs3 = intersect_pairs(fa, oa, fb, ob)
-            except NATIVE_ERRORS:
-                parts = []
-                nb = int(both.sum())
-                offs3 = np.zeros(nb + 1, np.int64)
-                for j in range(nb):
-                    eq = _gx(
-                        [int(x) for x in fa[oa[j] : oa[j + 1]]],
-                        [int(x) for x in fb[ob[j] : ob[j + 1]]],
-                    )
-                    parts.append(np.asarray(eq, np.uint32))
-                    offs3[j + 1] = offs3[j] + len(parts[-1])
-                flat3 = (
-                    np.concatenate(parts) if parts else np.zeros(0, np.uint32)
-                )
-            lens_u[both] = np.diff(offs3)
-        lens_u[only1] = np.diff(ss)[g1_u[only1]]
-        lens_u[only2] = np.diff(ss)[g2_u[only2]]
-        sig_start = np.zeros(U + 1, np.int64)
-        np.cumsum(lens_u, out=sig_start[1:])
-        sig_flat = np.empty(int(sig_start[-1]), np.uint32)
-        _fill_rows(sig_flat, sig_start, np.nonzero(both)[0], flat3, offs3)
-        for mask, gu in ((only1, g1_u), (only2, g2_u)):
-            idxs = np.nonzero(mask)[0]
-            if len(idxs):
-                src_flat, src_offs = _csr_rows(sf, ss, gu[idxs])
-                _fill_rows(sig_flat, sig_start, idxs, src_flat, src_offs)
-
-        sig_of_read = np.full(n1, -1, np.int64)
-        sig_of_read[simple] = kinv
-        self._tick("pfin.intersect", _t)
-        _t = time.time()
-
-        # override rows (either mate -2/-3-flagged): each mate's resolved
-        # EC lists assemble as CSR arrays (flagged mate -> its remap list,
-        # clean mapped mate -> its signature row); both-mapped rows then
-        # batch through ONE C++ intersect_pairs call and single-mate rows
-        # bulk-copy — no per-row python list handling
-        ovr_rows = np.nonzero(has_ovr)[0].astype(np.int64)
-        R = len(ovr_rows)
-
-        def _mate_csr(row_off, invm, m):
-            """CSR of each override row's resolved list for one mate
-            (global combined-batch row = pair row + row_off)."""
-            g = invm[ovr_rows]
-            mapped = m[ovr_rows]
-            from_ov = none_mask[g] & mapped
-            from_sig = mapped & ~none_mask[g]
-            lens = np.zeros(R, np.int64)
-            lens[from_sig] = np.diff(ss)[g[from_sig]]
-            ov_lists = [
-                np.asarray(ov[int(i) + row_off][0], np.uint32)
-                for i in ovr_rows[from_ov]
-            ]
-            lens[from_ov] = [len(x) for x in ov_lists]
-            offs = np.zeros(R + 1, np.int64)
-            np.cumsum(lens, out=offs[1:])
-            flat = np.empty(int(offs[-1]), np.uint32)
-            sflat, soffs = _csr_rows(sf, ss, g[from_sig])
-            _fill_rows(flat, offs, np.nonzero(from_sig)[0], sflat, soffs)
-            if ov_lists:
-                ooffs = np.zeros(len(ov_lists) + 1, np.int64)
-                np.cumsum(lens[from_ov], out=ooffs[1:])
-                _fill_rows(flat, offs, np.nonzero(from_ov)[0],
-                           np.concatenate(ov_lists), ooffs)
-            return flat, offs, mapped
-
-        ovr_start = np.zeros(R + 1, np.int64)
-        ovr_ids = np.zeros(0, np.uint32)
-        if R:
-            fa_, oa_, map1 = _mate_csr(0, inv1, m1)
-            fb_, ob_, map2 = _mate_csr(h, inv2, m2)
-            both_r = map1 & map2
-            a_only = map1 & ~map2
-            b_only = map2 & ~map1
-            out_lens = np.zeros(R, np.int64)
-            out_lens[a_only] = np.diff(oa_)[a_only]
-            out_lens[b_only] = np.diff(ob_)[b_only]
-            flat_o = np.zeros(0, np.uint32)
-            offs_o = np.zeros(1, np.int64)
-            if both_r.any():
-                bidx = np.nonzero(both_r)[0]
-                fa, oa = _csr_rows(fa_, oa_, bidx)
-                fb, ob = _csr_rows(fb_, ob_, bidx)
+        with spans.span("pa.pfin.remap_collect"):
+            ov = self._remap_collect(st["remap_fut"])
+        with spans.span("pa.pfin.group"):
+            cov_all = st["cov"]
+            for i in st["overflow_rows"]:
+                cov_all[i] = ov[i][1]
+            cov1 = cov_all[:n1]
+            cov2 = cov_all[h : h + n1]
+            cov = cov1 + cov2
+            inv = st["inv"]
+            inv1 = inv[:n1]
+            inv2 = inv[h : h + n1]
+            none_mask = st["none_mask"]
+            sf, ss = st["sig_flat"], st["sig_start"]
+            has_ovr = none_mask[inv1] | none_mask[inv2]
+            m1 = cov1 > 0
+            m2 = cov2 > 0
+            case = m1.astype(np.int64) * 2 + m2.astype(np.int64)
+            key1 = np.where(m1, inv1, -1)
+            key2 = np.where(m2, inv2, -1)
+            simple = ~has_ovr
+            uk, kinv = _group_rows(
+                np.stack([case, key1, key2], axis=1)[simple])
+        with spans.span("pa.pfin.intersect"):
+            U = len(uk)
+            c_u, g1_u, g2_u = uk[:, 0], uk[:, 1], uk[:, 2]
+            both = c_u == 3
+            only1 = c_u == 2
+            only2 = c_u == 1
+            lens_u = np.zeros(U, np.int64)
+            flat3 = np.zeros(0, np.uint32)
+            offs3 = np.zeros(1, np.int64)
+            if both.any():
+                fa, oa = _csr_rows(sf, ss, g1_u[both])
+                fb, ob = _csr_rows(sf, ss, g2_u[both])
                 try:
                     from ..ops.native import intersect_pairs
 
-                    flat_o, offs_o = intersect_pairs(fa, oa, fb, ob)
+                    flat3, offs3 = intersect_pairs(fa, oa, fb, ob)
                 except NATIVE_ERRORS:
                     parts = []
-                    offs_o = np.zeros(len(bidx) + 1, np.int64)
-                    for t in range(len(bidx)):
+                    nb = int(both.sum())
+                    offs3 = np.zeros(nb + 1, np.int64)
+                    for j in range(nb):
                         eq = _gx(
-                            [int(x) for x in fa[oa[t] : oa[t + 1]]],
-                            [int(x) for x in fb[ob[t] : ob[t + 1]]],
+                            [int(x) for x in fa[oa[j] : oa[j + 1]]],
+                            [int(x) for x in fb[ob[j] : ob[j + 1]]],
                         )
                         parts.append(np.asarray(eq, np.uint32))
-                        offs_o[t + 1] = offs_o[t] + len(parts[-1])
-                    flat_o = (np.concatenate(parts) if parts
-                              else np.zeros(0, np.uint32))
-                out_lens[both_r] = np.diff(offs_o)
-            np.cumsum(out_lens, out=ovr_start[1:])
-            ovr_ids = np.empty(int(ovr_start[-1]), np.uint32)
-            _fill_rows(ovr_ids, ovr_start, np.nonzero(both_r)[0],
-                       flat_o, offs_o)
-            for mask, f_, o_ in ((a_only, fa_, oa_), (b_only, fb_, ob_)):
+                        offs3[j + 1] = offs3[j] + len(parts[-1])
+                    flat3 = (
+                        np.concatenate(parts) if parts
+                        else np.zeros(0, np.uint32)
+                    )
+                lens_u[both] = np.diff(offs3)
+            lens_u[only1] = np.diff(ss)[g1_u[only1]]
+            lens_u[only2] = np.diff(ss)[g2_u[only2]]
+            sig_start = np.zeros(U + 1, np.int64)
+            np.cumsum(lens_u, out=sig_start[1:])
+            sig_flat = np.empty(int(sig_start[-1]), np.uint32)
+            _fill_rows(sig_flat, sig_start, np.nonzero(both)[0], flat3, offs3)
+            for mask, gu in ((only1, g1_u), (only2, g2_u)):
                 idxs = np.nonzero(mask)[0]
                 if len(idxs):
-                    src_flat, src_offs = _csr_rows(f_, o_, idxs)
-                    _fill_rows(ovr_ids, ovr_start, idxs, src_flat, src_offs)
+                    src_flat, src_offs = _csr_rows(sf, ss, gu[idxs])
+                    _fill_rows(sig_flat, sig_start, idxs, src_flat, src_offs)
 
-        self._tick("pfin.overrides", _t)
-        _t = time.time()
-        ids_concat, id_offs = _concat_ids_for_emit(b1)
-        out = _native.emit_records_sig(
-            cov, self.config.read_coverage_threshold, ids_concat, id_offs,
-            sig_of_read, sig_start, sig_flat, ovr_rows, ovr_start, ovr_ids,
-        )
-        self._tick("pfin.emit", _t)
+            sig_of_read = np.full(n1, -1, np.int64)
+            sig_of_read[simple] = kinv
+
+        with spans.span("pa.pfin.overrides"):
+            # override rows (either mate -2/-3-flagged): each mate's resolved
+            # EC lists assemble as CSR arrays (flagged mate -> its remap list,
+            # clean mapped mate -> its signature row); both-mapped rows then
+            # batch through ONE C++ intersect_pairs call and single-mate rows
+            # bulk-copy — no per-row python list handling
+            ovr_rows = np.nonzero(has_ovr)[0].astype(np.int64)
+            R = len(ovr_rows)
+
+            def _mate_csr(row_off, invm, m):
+                """CSR of each override row's resolved list for one mate
+                (global combined-batch row = pair row + row_off)."""
+                g = invm[ovr_rows]
+                mapped = m[ovr_rows]
+                from_ov = none_mask[g] & mapped
+                from_sig = mapped & ~none_mask[g]
+                lens = np.zeros(R, np.int64)
+                lens[from_sig] = np.diff(ss)[g[from_sig]]
+                ov_lists = [
+                    np.asarray(ov[int(i) + row_off][0], np.uint32)
+                    for i in ovr_rows[from_ov]
+                ]
+                lens[from_ov] = [len(x) for x in ov_lists]
+                offs = np.zeros(R + 1, np.int64)
+                np.cumsum(lens, out=offs[1:])
+                flat = np.empty(int(offs[-1]), np.uint32)
+                sflat, soffs = _csr_rows(sf, ss, g[from_sig])
+                _fill_rows(flat, offs, np.nonzero(from_sig)[0], sflat, soffs)
+                if ov_lists:
+                    ooffs = np.zeros(len(ov_lists) + 1, np.int64)
+                    np.cumsum(lens[from_ov], out=ooffs[1:])
+                    _fill_rows(flat, offs, np.nonzero(from_ov)[0],
+                               np.concatenate(ov_lists), ooffs)
+                return flat, offs, mapped
+
+            ovr_start = np.zeros(R + 1, np.int64)
+            ovr_ids = np.zeros(0, np.uint32)
+            if R:
+                fa_, oa_, map1 = _mate_csr(0, inv1, m1)
+                fb_, ob_, map2 = _mate_csr(h, inv2, m2)
+                both_r = map1 & map2
+                a_only = map1 & ~map2
+                b_only = map2 & ~map1
+                out_lens = np.zeros(R, np.int64)
+                out_lens[a_only] = np.diff(oa_)[a_only]
+                out_lens[b_only] = np.diff(ob_)[b_only]
+                flat_o = np.zeros(0, np.uint32)
+                offs_o = np.zeros(1, np.int64)
+                if both_r.any():
+                    bidx = np.nonzero(both_r)[0]
+                    fa, oa = _csr_rows(fa_, oa_, bidx)
+                    fb, ob = _csr_rows(fb_, ob_, bidx)
+                    try:
+                        from ..ops.native import intersect_pairs
+
+                        flat_o, offs_o = intersect_pairs(fa, oa, fb, ob)
+                    except NATIVE_ERRORS:
+                        parts = []
+                        offs_o = np.zeros(len(bidx) + 1, np.int64)
+                        for t in range(len(bidx)):
+                            eq = _gx(
+                                [int(x) for x in fa[oa[t] : oa[t + 1]]],
+                                [int(x) for x in fb[ob[t] : ob[t + 1]]],
+                            )
+                            parts.append(np.asarray(eq, np.uint32))
+                            offs_o[t + 1] = offs_o[t] + len(parts[-1])
+                        flat_o = (np.concatenate(parts) if parts
+                                  else np.zeros(0, np.uint32))
+                    out_lens[both_r] = np.diff(offs_o)
+                np.cumsum(out_lens, out=ovr_start[1:])
+                ovr_ids = np.empty(int(ovr_start[-1]), np.uint32)
+                _fill_rows(ovr_ids, ovr_start, np.nonzero(both_r)[0],
+                           flat_o, offs_o)
+                for mask, f_, o_ in ((a_only, fa_, oa_), (b_only, fb_, ob_)):
+                    idxs = np.nonzero(mask)[0]
+                    if len(idxs):
+                        src_flat, src_offs = _csr_rows(f_, o_, idxs)
+                        _fill_rows(ovr_ids, ovr_start, idxs, src_flat,
+                                   src_offs)
+
+        with spans.span("pa.pfin.emit"):
+            ids_concat, id_offs = _concat_ids_for_emit(b1)
+            out = _native.emit_records_sig(
+                cov, self.config.read_coverage_threshold, ids_concat, id_offs,
+                sig_of_read, sig_start, sig_flat, ovr_rows, ovr_start, ovr_ids,
+            )
         return out
 
     def map_fastq_paired(self, path1: str, path2: str):

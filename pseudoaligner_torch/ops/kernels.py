@@ -29,6 +29,7 @@ import threading
 
 import torch
 
+from .. import spans
 from ..index.cuckoo import B1_SLOTS
 from ..index.mphf import MAX_LEVELS
 from .map_kernel import (
@@ -118,8 +119,12 @@ def build() -> str:
 
 
 def _load():
+    """The kernels' library, built and bound at the first call (the span
+    `pa.kernels.load`)."""
     global _lib
-    with _lock:
+    if _lib is not None:
+        return _lib
+    with spans.span("pa.kernels.load"), _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
             lib.pa_seed_tables.restype = _I
@@ -476,9 +481,11 @@ def unpack_index_cuda(packed: dict, cfg: PackCfg):
         _check("cuckoo", cuckoo, torch.int32, (S // 4, 4 * W), dev)
         klo = khi = kout = None
     lib = _load()
-    rc = lib.pa_unpack_index(dev.index, S, cfg.node_bits, cfg.off_bits, hb,
-                             vlo.data_ptr(), packed["vals_hi"].data_ptr(),
-                             klo, khi, vals.data_ptr(), kout, _stream(dev))
+    with spans.device_span("pa.serve_init.unpack", dev):
+        rc = lib.pa_unpack_index(dev.index, S, cfg.node_bits, cfg.off_bits,
+                                 hb, vlo.data_ptr(),
+                                 packed["vals_hi"].data_ptr(), klo, khi,
+                                 vals.data_ptr(), kout, _stream(dev))
     _raise_on(lib, rc, "unpack kernel")
     unpack_index_cuda.launches += 1
     return cuckoo, vals

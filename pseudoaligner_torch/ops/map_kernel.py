@@ -60,7 +60,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import dna
+from .. import dna, spans
 from ..config import AlignerConfig
 from ..index.cuckoo import (
     B1_SLOTS,
@@ -199,19 +199,20 @@ class MapResult(NamedTuple):
 def pack_reads_host(codes: np.ndarray) -> np.ndarray:
     """[B, L] uint8 codes -> [B, ceil(L/16)] uint32, 16 bases per word,
     base i at bits 2*(i % 16) (C++ packer, NumPy fallback)."""
-    try:
-        from ..io.native import pack_reads
+    with spans.span("pa.host_pack"):
+        try:
+            from ..io.native import pack_reads
 
-        return pack_reads(np.asarray(codes, dtype=np.uint8))
-    except NATIVE_ERRORS:
-        pass
-    B, L = codes.shape
-    nw = (L + 15) // 16
-    padded = np.zeros((B, nw * 16), dtype=np.uint32)
-    padded[:, :L] = codes
-    shifts = (np.arange(16, dtype=np.uint32) * 2)[None, None, :]
-    return np.bitwise_or.reduce(padded.reshape(B, nw, 16) << shifts,
-                                axis=2).astype(np.uint32)
+            return pack_reads(np.asarray(codes, dtype=np.uint8))
+        except NATIVE_ERRORS:
+            pass
+        B, L = codes.shape
+        nw = (L + 15) // 16
+        padded = np.zeros((B, nw * 16), dtype=np.uint32)
+        padded[:, :L] = codes
+        shifts = (np.arange(16, dtype=np.uint32) * 2)[None, None, :]
+        return np.bitwise_or.reduce(padded.reshape(B, nw, 16) << shifts,
+                                    axis=2).astype(np.uint32)
 
 
 def lens_link_dtype(read_len: int):
@@ -272,35 +273,57 @@ def device_index_from_image(image, config: AlignerConfig):
     if config.seed_index not in SEED_INDEXES:
         raise ValueError(f"seed_index={config.seed_index!r}, expected one "
                          f"of {SEED_INDEXES}")
-    pool_pad = _pool_pad(config.max_read_len)
-    tx_words = _tx_words(image, config)
+    with spans.span("pa.serve_init.arrays"):
+        pool_pad = _pool_pad(config.max_read_len)
+        tx_words = _tx_words(image, config)
+        pool_rows = _pack_pool_rows(image.seq_pool, pool_pad, pool_pad)
+        ec_bits = (build_ec_bitsets(image.ec_offsets, image.ec_txs,
+                                    len(image.tx_names))
+                   if tx_words > 0 else np.zeros((1, 0), np.uint32))
+
+        node_row = np.zeros((image.n_nodes, 12), dtype=np.int32)
+        node_row[:, 0] = image.node_start.astype(np.int64) + pool_pad
+        node_row[:, 1] = image.node_len
+        node_row[:, 2] = image.node_exts
+        node_row[:, 3] = image.node_ec
+        node_row[:, 4:8] = image.r_edge
+        node_row[:, 8:12] = image.l_edge
+
+        cuckoo, cuckoo_vals, mask, bucket_seed, ones_node, ones_off = (
+            _seed_table(image, config.seed_index))
+        dev = DeviceIndex(
+            pool_rows=pool_rows, node_row=node_row, cuckoo=cuckoo,
+            cuckoo_vals=cuckoo_vals,
+            mphf_bits=image.mphf.bits, mphf_ranks=image.mphf.ranks,
+            kmer_keys=image.kmer_keys,
+            kmer_node=image.kmer_node.astype(np.int32),
+            kmer_offset=image.kmer_offset.astype(np.int32), ec_bits=ec_bits)
+        meta = _make_meta(image, config, tx_words, mask, bucket_seed,
+                          ones_node, ones_off, pool_pad)
+        return dev, meta
+
+
+def _seed_table(image, seed_index: str):
+    """The seed index's table: (cuckoo, cuckoo_vals, mask, bucket_seed,
+    ones_node, ones_off) as DeviceIndex and MapMeta carry them."""
     W = image.kmer_keys.shape[1]
-    pool_rows = _pack_pool_rows(image.seq_pool, pool_pad, pool_pad)
-    ec_bits = (build_ec_bitsets(image.ec_offsets, image.ec_txs,
-                                len(image.tx_names))
-               if tx_words > 0 else np.zeros((1, 0), np.uint32))
-
-    node_row = np.zeros((image.n_nodes, 12), dtype=np.int32)
-    node_row[:, 0] = image.node_start.astype(np.int64) + pool_pad
-    node_row[:, 1] = image.node_len
-    node_row[:, 2] = image.node_exts
-    node_row[:, 3] = image.node_ec
-    node_row[:, 4:8] = image.r_edge
-    node_row[:, 8:12] = image.l_edge
-
-    bucket_seed = 0
-    cuckoo_vals = np.zeros(2, np.uint32)
-    ones_node = ones_off = -1
-    if config.seed_index == "cuckoo":
+    if seed_index == "mphf":
+        return (np.zeros((1, CK_SLOTS * W), np.uint32), np.zeros(2, np.uint32),
+                0, 0, -1, -1)
+    with spans.span("pa.serve_init.table"):
+        if seed_index == "bucket1":
+            cuckoo, mask, bucket_seed = build_bucket1(
+                image.kmer_keys, image.kmer_node, image.kmer_offset)
+            return cuckoo, np.zeros(2, np.uint32), mask, bucket_seed, -1, -1
         ck = build_cuckoo_fast(image.kmer_keys, image.kmer_node,
                                image.kmer_offset)
-        mask = ck.mask
         nb = ck.buckets.shape[0]
         full = ck.buckets.reshape(nb, CK_SLOTS, W + 2)
         keys = full[:, :, :W].copy()
         keys[full[:, :, W] == CK_EMPTY] = 0xFFFFFFFF
         cuckoo = np.ascontiguousarray(keys.reshape(nb, CK_SLOTS * W))
         cuckoo_vals = np.ascontiguousarray(full[:, :, W : W + 2].reshape(-1))
+        ones_node = ones_off = -1
         if image.k * 2 == 32 * W:
             # the all-ones k-mer is real at word-filling k and collides
             # with the empty-slot key pattern: its payload rides in meta
@@ -309,23 +332,7 @@ def device_index_from_image(image, config: AlignerConfig):
             if len(hit):
                 ones_node = int(image.kmer_node[hit[0]])
                 ones_off = int(image.kmer_offset[hit[0]])
-    elif config.seed_index == "bucket1":
-        cuckoo, mask, bucket_seed = build_bucket1(
-            image.kmer_keys, image.kmer_node, image.kmer_offset)
-    else:
-        cuckoo = np.zeros((1, CK_SLOTS * W), np.uint32)
-        mask = 0
-
-    dev = DeviceIndex(
-        pool_rows=pool_rows, node_row=node_row, cuckoo=cuckoo,
-        cuckoo_vals=cuckoo_vals,
-        mphf_bits=image.mphf.bits, mphf_ranks=image.mphf.ranks,
-        kmer_keys=image.kmer_keys,
-        kmer_node=image.kmer_node.astype(np.int32),
-        kmer_offset=image.kmer_offset.astype(np.int32), ec_bits=ec_bits)
-    meta = _make_meta(image, config, tx_words, mask, bucket_seed, ones_node,
-                      ones_off, pool_pad)
-    return dev, meta
+        return cuckoo, cuckoo_vals, ck.mask, 0, ones_node, ones_off
 
 
 def _make_meta(image, config: AlignerConfig, tx_words: int,
@@ -477,29 +484,35 @@ def upload(dev: DeviceIndex, device, serving: MapMeta | None = None,
         ck, cv = np.asarray(dev.cuckoo), np.asarray(dev.cuckoo_vals)
         if cuckoo and ck.shape[0] > 1 and (ck.nbytes + cv.nbytes
                                             >= PACK_MIN_BYTES):
-            packed = pack_serving_args(dev, serving)
+            with spans.span("pa.serve_init.pack"):
+                packed = pack_serving_args(dev, serving)
     elif pack:
         if not cuckoo:
             raise ValueError("the packed upload takes a cuckoo index and its "
                              "serving meta (upload(..., serving=meta))")
-        packed = pack_serving_args(dev, serving)
+        with spans.span("pa.serve_init.pack"):
+            packed = pack_serving_args(dev, serving)
         if packed is None:
             raise ValueError("the index's values do not fit the packed "
                              "fields")
-    out = {n: _as_tensor(a, device) for n, a in arrays.items()
-           if n not in ("mphf_bits", "mphf_ranks")
-           and (packed is None or n not in ("cuckoo", "cuckoo_vals"))}
-    out["mphf_bits"], out["mphf_ranks"] = paired_upload(
-        arrays["mphf_bits"], arrays["mphf_ranks"], device)
+    with spans.span("pa.serve_init.h2d"):
+        out = {n: _as_tensor(a, device) for n, a in arrays.items()
+               if n not in ("mphf_bits", "mphf_ranks")
+               and (packed is None or n not in ("cuckoo", "cuckoo_vals"))}
+        out["mphf_bits"], out["mphf_ranks"] = paired_upload(
+            arrays["mphf_bits"], arrays["mphf_ranks"], device)
+        t = {} if packed is None else packed_tensors(packed[0], device)
+    spans.count("pa.serve_init.h2d_bytes",
+                storage_nbytes([*out.values(), *t.values()]))
     if packed is not None:
-        args, cfg = packed
-        t = packed_tensors(args, device)
+        cfg = packed[1]
         if t["vals_lo"].is_cuda:
             from .kernels import unpack_index_cuda
 
             out["cuckoo"], out["cuckoo_vals"] = unpack_index_cuda(t, cfg)
         else:
-            out["cuckoo"], out["cuckoo_vals"] = unpack_index(t, cfg)
+            with spans.span("pa.serve_init.unpack"):
+                out["cuckoo"], out["cuckoo_vals"] = unpack_index(t, cfg)
     return DeviceIndex(**out)
 
 
@@ -1014,6 +1027,12 @@ def map_batch_packed(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
     in the full-output shape with meta.tx_words > 0, the bitset EC kernel
     (K4); a kernel that cannot build or launch raises.  CPU tensors go
     through the plain PyTorch passes."""
+    with spans.span("pa.step"):
+        return _map_packed(meta, idx, packed, lens)
+
+
+def _map_packed(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
+                lens: torch.Tensor) -> MapResult:
     if packed.is_cuda:
         from .kernels import seed_tables_cuda
 
@@ -1061,8 +1080,9 @@ def map_batch(meta: MapMeta, idx: DeviceIndex, reads: torch.Tensor,
               lens: torch.Tensor) -> MapResult:
     """Map a [B, L] batch of unpacked base codes: packed on the device
     (K6 on a GPU), then map_batch_packed."""
-    packed = pack_reads(reads)
-    return map_batch_packed(meta, idx, packed, lens.to(torch.int32))
+    with spans.span("pa.step"):
+        packed = pack_reads(reads)
+        return _map_packed(meta, idx, packed, lens.to(torch.int32))
 
 
 def map_batch_with_seeds(meta: MapMeta, idx: DeviceIndex,
