@@ -34,7 +34,8 @@ Phases (every number printed is for the card named on the first line):
    once more for the device's busy share and its time per batch in copies
    and kernels;
 5. bucket1 and MPHF seed indexes on the same index image: device bytes
-   (each upload's bytes are its arrays' bytes) and serve-init time; K1
+   (each upload's bytes are its arrays' bytes), the MPHF's slot-record
+   bytes (`pa.serve_init.mphf_record_bytes`) and serve-init time; K1
    under each and K2 in the bucket1 serving shape (lazy seeds) on 4
    batches spread over the file, K2 in the MPHF uncapped full-output shape
    on the middle one, and the stats kernel (K3) against
@@ -881,9 +882,11 @@ def main(argv=None) -> int:
         t = time.time()
         al = Pseudoaligner(image, cfg, device="cuda")
         torch.cuda.synchronize()
-        split = spans.snapshot()["spans"]
-        # each storage once (the MPHF's paired bit and rank words) is the
-        # arrays' bytes: the paired layout adds none
+        snap = spans.snapshot()
+        split = snap["spans"]
+        records = snap["counters"].get("pa.serve_init.mphf_record_bytes")
+        # each storage once (the MPHF's paired bit and rank words, its slot
+        # records) is the arrays' bytes: at W = 2 the layouts add none
         arrays = sum(getattr(al.dev, f.name).numel() * 4
                      for f in dataclasses.fields(al.dev))
         if al.dev.nbytes() != arrays:
@@ -891,7 +894,7 @@ def main(argv=None) -> int:
                                  f"arrays {arrays} B")
         say(f"[{mode}] serve init (device index build + upload) "
             f"{time.time() - t:.1f} s; index device bytes {al.dev.nbytes()}"
-            "; spans, s (self s): " + ", ".join(
+            f", MPHF record bytes {records}; spans, s (self s): " + ", ".join(
                 f"{k} {v['total_s']:.3f} ({v['self_s']:.3f})"
                 for k, v in sorted(split.items())))
         return cfg, al

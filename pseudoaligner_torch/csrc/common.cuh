@@ -16,9 +16,11 @@
 //                             offset) slots; empty slots have node EMPTY
 //   cuckoo_vals [NB*4*2] uint32 flat (node, offset) per cuckoo slot
 //   mphf_pairs  [bw, 2] uint32: each MPHF level word's bits and the set bits
-//               of the level before it, side by side (one 8-byte load);
-//               kmer_keys [nk, W] uint32, kmer_node / kmer_offset [nk]
-//               int32, all in MPHF slot order
+//               of the level before it, side by side (one 8-byte load)
+//   records     [nk, RECORD_WORDS<W>] uint32 in MPHF slot order: each
+//               slot's W key words, node, offset, zero padding (one 16-
+//               or 32-byte load); K8's shard-local records have the same
+//               layout
 //   nh3         [B, P, 3] int32 (q, node, off)
 //
 // What bounds the kernels that use this file, and what the shared pieces do
@@ -126,9 +128,7 @@ struct Index {
   const uint32_t* cuckoo;
   const uint32_t* vals;
   const uint2* pairs;  // (bit word, rank word) per MPHF level word
-  const uint32_t* keys;
-  const int32_t* knode;
-  const int32_t* koff;
+  const uint32_t* records;  // (key words, node, offset) per MPHF slot
 };
 
 inline Index index_from(const int64_t* ptrs) {
@@ -136,9 +136,7 @@ inline Index index_from(const int64_t* ptrs) {
   ix.cuckoo = reinterpret_cast<const uint32_t*>(ptrs[0]);
   ix.vals = reinterpret_cast<const uint32_t*>(ptrs[1]);
   ix.pairs = reinterpret_cast<const uint2*>(ptrs[2]);
-  ix.keys = reinterpret_cast<const uint32_t*>(ptrs[3]);
-  ix.knode = reinterpret_cast<const int32_t*>(ptrs[4]);
-  ix.koff = reinterpret_cast<const int32_t*>(ptrs[5]);
+  ix.records = reinterpret_cast<const uint32_t*>(ptrs[3]);
   return ix;
 }
 
@@ -252,12 +250,12 @@ __device__ __forceinline__ uint64_t evict_first_policy() {
 }
 
 // load_words under the evict-first policy, for data no later read of the
-// launch wants from L2: the MPHF probers (K3, K8) read their random keys or
-// records, their streamed queries and results this way, so those do not
-// evict the (bit word, rank word) pairs every probe reads (K3 20%, K8 12%
-// faster on the H100; an L2 persisting window over the pairs did as well,
-// but the L2 set-aside it needs halved the streaming rate of every later
-// kernel: PERF.md §6).
+// launch wants from L2: the MPHF probers (K1, K2's lazy seek, K3, K8) read
+// their random slot records, K8 its streamed queries and results, this
+// way, so those do not evict the (bit word, rank word) pairs every probe
+// reads (K3 20%, K8 12% faster on the H100; an L2 persisting window over
+// the pairs did as well, but the L2 set-aside it needs halved the
+// streaming rate of every later kernel: PERF.md §6).
 template <int N>
 __device__ __forceinline__ void load_words_evict_first(const uint32_t* p,
                                                        uint32_t (&r)[N]) {
@@ -439,28 +437,37 @@ __device__ __forceinline__ int mphf_slot(int n_levels, const Levels& lv,
   return -1;
 }
 
-// Whether the key stored at MPHF slot `slot` equals the query words; the
-// key read under the evict-first policy when EVICT_FIRST.
-template <int W, bool EVICT_FIRST = false>
-__device__ __forceinline__ bool key_at_slot_equals(const uint32_t* keys,
-                                                   int slot,
-                                                   const uint32_t (&w)[W]) {
-  uint32_t k[W];
-  if (EVICT_FIRST)
-    load_words_evict_first<W>(keys + (size_t)slot * W, k);
-  else
-    load_words<W>(keys + (size_t)slot * W, k);
+// Words of an MPHF slot record of W key words, node and offset
+// (ops/map_kernel.py record_words): 16 bytes up to W = 2, else 32, so a
+// record never straddles a 32-byte sector.
+template <int W>
+constexpr int RECORD_WORDS = W + 2 <= 4 ? 4 : 8;
+
+// The stored-key verify of MPHF slot `slot`: one load of its record under
+// the evict-first policy (records are not read again within a launch; the
+// pairs are); whether its key equals the query words, and (node, offset)
+// from the same registers when it does, else (-1, -1).  K1, K2's lazy
+// seek, K3 and K8 all verify through it.
+template <int W>
+__device__ __forceinline__ bool record_verify(const uint32_t* records,
+                                              int slot,
+                                              const uint32_t (&w)[W],
+                                              int* node, int* off) {
+  constexpr int RW = RECORD_WORDS<W>;
+  uint32_t rec[RW];
+  load_words_evict_first<RW>(records + (size_t)slot * RW, rec);
   bool eq = true;
 #pragma unroll
-  for (int j = 0; j < W; j++) eq = eq && (k[j] == w[j]);
+  for (int j = 0; j < W; j++) eq = eq && (rec[j] == w[j]);
+  *node = eq ? (int)rec[W] : -1;
+  *off = eq ? (int)rec[W + 1] : -1;
   return eq;
 }
 
 // MPHF probe plus the stored-key verify: (node, offset) at the slot when the
-// key there equals the query, else (-1, -1).  The node and offset are read
-// only after the verify: most alien k-mers land on a set bit, and reading
-// their values too costs more of the random-access rate than the dependent
-// load it would save.
+// key there equals the query, else (-1, -1).  Key and values share one
+// record, so after the level walk a probe reads one sector, hit or miss,
+// and a hit's values come with its key rather than a round trip later.
 template <int W>
 __device__ __forceinline__ void mphf_verified_probe(const Params& p,
                                                     const Levels& lv,
@@ -468,13 +475,9 @@ __device__ __forceinline__ void mphf_verified_probe(const Params& p,
                                                     const uint32_t (&w)[W],
                                                     int* node, int* off) {
   const int slot = mphf_slot<W>(p.n_levels, lv, ix.pairs, w);
-  if (slot >= 0 && key_at_slot_equals<W>(ix.keys, slot, w)) {
-    *node = __ldg(ix.knode + slot);
-    *off = __ldg(ix.koff + slot);
-  } else {
-    *node = -1;
-    *off = -1;
-  }
+  *node = -1;
+  *off = -1;
+  if (slot >= 0) record_verify<W>(ix.records, slot, w, node, off);
 }
 
 // The seed probe of the index kind MODE (ops/map_kernel.py seed_probe).

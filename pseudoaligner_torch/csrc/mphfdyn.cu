@@ -59,27 +59,14 @@ struct Dyn {
   const uint32_t* records;
 };
 
-// Words of a record of W key words, node and offset (sharded_index.py
-// record_words).
-template <int W>
-constexpr int RECORD_WORDS = W + 2 <= 4 ? 4 : 8;
-
 // (node, offset) of the query words w: the record at the MPHF slot when its
-// key equals w, else (-1, -1).
+// key equals w, else (-1, -1) (common.cuh record_verify).
 template <int W>
 __device__ __forceinline__ int2 lookup(const Dyn& a, const pa::Levels& lv,
                                        const uint32_t (&w)[W]) {
-  constexpr int RW = RECORD_WORDS<W>;
   const int slot = pa::mphf_slot<W>(a.n_levels, lv, a.pairs, w);
   int2 r = make_int2(-1, -1);
-  if (slot >= 0) {
-    uint32_t rec[RW];
-    pa::load_words_evict_first<RW>(a.records + (size_t)slot * RW, rec);
-    bool eq = true;
-#pragma unroll
-    for (int j = 0; j < W; j++) eq = eq && (rec[j] == w[j]);
-    if (eq) r = make_int2((int)rec[W], (int)rec[W + 1]);
-  }
+  if (slot >= 0) pa::record_verify<W>(a.records, slot, w, &r.x, &r.y);
   return r;
 }
 

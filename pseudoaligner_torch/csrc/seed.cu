@@ -11,12 +11,14 @@
 //
 // Bound on the H100: memory bytes.  Random reads of the index (one or two
 // 32-byte cuckoo buckets and an 8-byte value, a 256-byte bucket1 row at
-// k=20, or per MPHF level a bit word, then a rank word, the stored key and
-// the value) from tables far larger than the 50 MB L2 at GENCODE scale, and
-// the 12*P-byte nh3 row written per read, about 40% of the bytes.  What
-// holds it back is the rate of random 32-byte reads, well below the
-// streaming rate: each probe is a chain of dependent random loads (two or
-// three for cuckoo, four or more for the MPHF), so the kernel needs as
+// k=20, or per MPHF level tried its (bit word, rank word) pair, then the
+// slot's record of key words, node and offset in one load, under the L2
+// evict-first policy so the pairs stay in L2) from tables far larger than
+// the 50 MB L2 at GENCODE scale, and the 12*P-byte nh3 row written per
+// read, about 40% of the bytes.  What holds it back is the rate of random
+// 32-byte reads, well below the streaming rate: each probe is a chain of
+// dependent random loads (two or three for cuckoo, one per level tried and
+// one record for the MPHF), so the kernel needs as
 // many probes in flight as its threads can carry, and every sector it
 // does not read counts.  On the H100 the second cuckoo bucket read
 // alongside the first, or two probes interleaved in one thread, made it

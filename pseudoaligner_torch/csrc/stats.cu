@@ -9,8 +9,9 @@
 // p <= len - k.  For a valid position the thread cuts the k-mer's words
 // from the packed read (common.cuh kmer_words, for the W the launch
 // picks), runs the MPHF level probe (common.cuh mphf_slot, one 8-byte
-// (bit word, rank word) load per level tried) and compares the key stored
-// at the slot: a hit when it equals, a false positive when a slot came back
+// (bit word, rank word) load per level tried) and compares the key of the
+// slot's record (common.cuh record_verify, one load of key words, node and
+// offset): a hit when it equals, a false positive when a slot came back
 // but the key differs.  Each block sums its threads' three flags (warp
 // shuffles, then one warp over the per-warp sums) and adds them to the
 // int64 counters with one atomicAdd each; the wrapper zeroes the counters
@@ -18,13 +19,13 @@
 //
 // Bound on the H100: memory bytes, but what limits it is the rate of
 // random reads: per valid position a pair per level tried (aliens try
-// several) and, where a level's bit is set, the W-word stored key, from a
-// key array far larger than the 50 MB L2.  The key reads go under an L2
-// evict-first policy (common.cuh load_words_evict_first), so they do not
-// evict the pair array, and 1024-thread blocks make one set of atomics per
-// 1024 positions; both measured on the card (PERF.md §6), as were two
-// losers, loading two levels' pairs at once and an L2 persisting window
-// over the pairs.
+// several) and, where a level's bit is set, the slot's record, from a
+// record array far larger than the 50 MB L2.  The record reads go under an
+// L2 evict-first policy (common.cuh load_words_evict_first), so they do
+// not evict the pair array, and 1024-thread blocks make one set of
+// atomics per 1024 positions; both measured on the card (PERF.md §6), as
+// were two losers, loading two levels' pairs at once and an L2 persisting
+// window over the pairs.
 
 #include "common.cuh"
 
@@ -48,8 +49,9 @@ __global__ void stats_kernel(pa::Params p, const __grid_constant__ pa::Levels lv
       pa::kmer_words<W>(pa::window_words(packed + (size_t)b * p.nw, p.nw),
                         pos, p.k, w);
       const int slot = pa::mphf_slot<W>(p.n_levels, lv, ix.pairs, w);
+      int node, off;
       if (slot >= 0) {
-        if (pa::key_at_slot_equals<W, true>(ix.keys, slot, w))
+        if (pa::record_verify<W>(ix.records, slot, w, &node, &off))
           hit = 1;
         else
           fp = 1;

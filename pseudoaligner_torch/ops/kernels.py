@@ -38,6 +38,7 @@ from .map_kernel import (
     MapMeta,
     MapResult,
     PackCfg,
+    record_words,
 )
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,9 +53,10 @@ NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 PARAM_NAMES = ("B", "nw", "L", "k", "lazy", "cuckoo_mask", "ones_node",
                "ones_off", "allowed", "max_nodes", "lcap", "wcap", "dc",
                "ec16", "cov8", "mode", "bucket_seed", "n_levels")
-# the seed index's arrays, as the host pointer vector of pa::index_from
-INDEX_ARRAYS = ("cuckoo", "cuckoo_vals", "mphf_pairs", "kmer_keys",
-                "kmer_node", "kmer_offset")
+# the seed index's arrays, as the host pointer vector of pa::index_from;
+# kmer_keys is column 0 of the MPHF's slot records (DeviceIndex
+# kmer_records), so its pointer is theirs
+INDEX_ARRAYS = ("cuckoo", "cuckoo_vals", "mphf_pairs", "kmer_keys")
 MAX_DISTINCT_CAP = 64  # walk.cu's shared-memory slot columns (32 KB)
 
 _lock = threading.Lock()
@@ -212,7 +214,8 @@ def _check_batch(meta: MapMeta, packed, lens):
 
 def _check_mphf(meta: MapMeta, idx: DeviceIndex, dev) -> None:
     """The MPHF and its slot-ordered keys and values, as the MPHF probe
-    reads them: every level's bit words inside mphf_bits."""
+    reads them: every level's bit words inside mphf_bits, and one record
+    of key words, node and offset per slot."""
     m = meta.mphf
     if not 0 < len(m.seeds) <= MAX_LEVELS:
         raise ValueError(f"{len(m.seeds)} MPHF levels, expected 1 to "
@@ -226,10 +229,13 @@ def _check_mphf(meta: MapMeta, idx: DeviceIndex, dev) -> None:
                          "another seed index carries them empty)")
     _check("mphf_pairs", idx.mphf_pairs, torch.int32, (bw, 2), dev)
     _check_aligned("mphf_pairs", idx.mphf_pairs)
-    _check("kmer_keys", idx.kmer_keys, torch.int32, (nk, meta.kmer_words),
-           dev)
-    _check("kmer_node", idx.kmer_node, torch.int32, (nk,), dev)
-    _check("kmer_offset", idx.kmer_offset, torch.int32, (nk,), dev)
+    W = meta.kmer_words
+    if tuple(idx.kmer_keys.shape) != (nk, W):
+        raise ValueError(f"kmer_keys: shape {tuple(idx.kmer_keys.shape)}, "
+                         f"expected {(nk, W)}")
+    _check("kmer_records", idx.kmer_records, torch.int32,
+           (nk, record_words(W)), dev)
+    _check_aligned("kmer_records", idx.kmer_records)
 
 
 def _check_seed_index(meta: MapMeta, idx: DeviceIndex, dev) -> None:

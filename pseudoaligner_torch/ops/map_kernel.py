@@ -85,6 +85,8 @@ SEED_INDEXES = ("cuckoo", "bucket1", "mphf")
 # the arrays only the MPHF probe (and batch_stats) reads
 MPHF_ARRAYS = ("mphf_bits", "mphf_ranks", "kmer_keys", "kmer_node",
                "kmer_offset")
+# the slot-ordered arrays an upload keeps as one record per MPHF slot
+RECORD_ARRAYS = ("kmer_keys", "kmer_node", "kmer_offset")
 # the default gate of the packed upload: cuckoo keys plus values of at
 # least this many bytes travel bit-packed (the reference's
 # PA_PACK_UPLOAD_MIN default)
@@ -117,7 +119,9 @@ class DeviceIndex:
     #                     (mphf_pairs)
     kmer_keys: object  # [nk, W] slot-ordered k-mer words
     kmer_node: object  # [nk] slot -> node
-    kmer_offset: object  # [nk] slot -> offset in the node
+    kmer_offset: object  # [nk] slot -> offset in the node; uploaded with
+    #                      the MPHF, the three are column ranges of one
+    #                      [nk, record_words(W)] tensor (kmer_records)
     ec_bits: object  # [n_ecs, TW] per-class transcript bitsets (bit t of
     #                  word w = transcript 32w + t), or [1, 0] when
     #                  meta.tx_words == 0
@@ -127,6 +131,13 @@ class DeviceIndex:
         """[bw, 2] (bit word, rank word) of each MPHF level word: the
         tensor an upload's mphf_bits and mphf_ranks are the columns of."""
         return paired(self.mphf_bits, self.mphf_ranks)
+
+    @property
+    def kmer_records(self) -> torch.Tensor:
+        """[nk, record_words(W)] (key words, node, offset, zero padding) of
+        each MPHF slot: the tensor an upload's kmer_keys, kmer_node and
+        kmer_offset are the column ranges of."""
+        return records(self.kmer_keys, self.kmer_node, self.kmer_offset)
 
     def nbytes(self) -> int:
         """Bytes of an uploaded index (tensors), each storage once."""
@@ -440,6 +451,54 @@ def paired(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.as_strided((n, 2), (2, 1))
 
 
+def record_words(W: int) -> int:
+    """Words of a record of W key words, node and offset: 4 (16 bytes)
+    for W <= 2, else 8, so a record never straddles a 32-byte sector."""
+    return 4 if W + 2 <= 4 else 8
+
+
+def record_upload(keys: np.ndarray, values, device) -> torch.Tensor:
+    """Key words [n, W] and a sequence of value arrays ([n] or [n, c]),
+    uint32 or int32 -> one [n, record_words(W)] int32 tensor on `device`:
+    each row the key words, then the values in order, then zero padding,
+    so a kernel verifies a key and reads its values with one 16- or
+    32-byte load.  Each array is copied as it is and placed on the device:
+    the host makes no pass over the records."""
+    n, W = keys.shape
+    rec = torch.zeros((n, record_words(W)), dtype=torch.int32, device=device)
+    rec[:, :W] = _as_tensor(keys, device)
+    at = W
+    for v in values:
+        t = _as_tensor(v, device).reshape(n, -1)
+        rec[:, at:at + t.shape[1]] = t
+        at += t.shape[1]
+    return rec
+
+
+def records(keys: torch.Tensor, *values: torch.Tensor) -> torch.Tensor:
+    """The [n, record_words(W)] int32 tensor whose column ranges `keys`
+    [n, W] and `values` ([n] or [n, c], in order after the keys) are, as
+    record_upload made them; raises ValueError on separate tensors."""
+    n, W = keys.shape
+    rw = record_words(W)
+    if n == 0 and all(v.shape[0] == 0 for v in values):
+        return keys.new_empty((0, rw))
+    ok = keys.stride() == (rw, 1)
+    at = W
+    for v in values:
+        c = v.shape[1] if v.dim() == 2 else 1
+        ok = (ok and v.shape[0] == n and v.stride()[0] == rw
+              and (v.dim() == 1 or v.stride()[1] == 1)
+              and v.data_ptr() == keys.data_ptr() + 4 * at
+              and v.untyped_storage().data_ptr()
+              == keys.untyped_storage().data_ptr())
+        at += c
+    if not ok or at > rw:
+        raise ValueError("keys and values must be column ranges of one "
+                         "record tensor (map_kernel.record_upload)")
+    return keys.as_strided((n, rw), (rw, 1))
+
+
 def packed_tensors(args: dict, device) -> dict:
     """`pack_serving_args`' arrays -> tensors on `device`: uint32 and
     uint16 as their int32 and int16 bit patterns, uint8 as is."""
@@ -464,6 +523,14 @@ def upload(dev: DeviceIndex, device, serving: MapMeta | None = None,
     as `batch_stats` needs.  The MPHF's bit and rank words travel side by
     side in one [bw, 2] tensor (`mphf_pairs`), mphf_bits and mphf_ranks
     its columns: the same bytes as two arrays, one load per level probe.
+    Where the MPHF is kept, each slot's key words, node and offset are one
+    record of `kmer_records` (built on the device by record_upload), and
+    kmer_keys, kmer_node and kmer_offset its column ranges: the stored-key
+    verify and the value fetch are one load.  At W = 2 (k 16-32) a record
+    takes the 16 bytes of the separate arrays; at W = 1, 3 and 4 its
+    padding adds 4, 12 and 8 bytes per key.  The counter
+    `pa.serve_init.mphf_record_bytes` holds the records' bytes, 0 where
+    they are not kept.
 
     `pack` chooses the bit-packed upload of the cuckoo keys and values
     (`pack_serving_args`, unpacked on the device by `unpack_index` or, on a
@@ -473,7 +540,8 @@ def upload(dev: DeviceIndex, device, serving: MapMeta | None = None,
     forces it and raises where the index cannot be packed; False never
     packs.  Either way the uploaded arrays are the same."""
     arrays = {f.name: getattr(dev, f.name) for f in fields(DeviceIndex)}
-    if serving is not None and serving.seed_index != "mphf":
+    keep = serving is None or serving.seed_index == "mphf"
+    if not keep:
         W = np.asarray(dev.kmer_keys).shape[1]
         for name in MPHF_ARRAYS:
             arrays[name] = np.zeros((0, W) if name == "kmer_keys" else 0,
@@ -498,12 +566,23 @@ def upload(dev: DeviceIndex, device, serving: MapMeta | None = None,
     with spans.span("pa.serve_init.h2d"):
         out = {n: _as_tensor(a, device) for n, a in arrays.items()
                if n not in ("mphf_bits", "mphf_ranks")
-               and (packed is None or n not in ("cuckoo", "cuckoo_vals"))}
+               and (packed is None or n not in ("cuckoo", "cuckoo_vals"))
+               and not (keep and n in RECORD_ARRAYS)}
         out["mphf_bits"], out["mphf_ranks"] = paired_upload(
             arrays["mphf_bits"], arrays["mphf_ranks"], device)
+        rec_bytes = 0
+        if keep:
+            keys = np.asarray(arrays["kmer_keys"])
+            rec = record_upload(keys, (arrays["kmer_node"],
+                                       arrays["kmer_offset"]), device)
+            W = keys.shape[1]
+            out["kmer_keys"] = rec[:, :W]
+            out["kmer_node"], out["kmer_offset"] = rec[:, W], rec[:, W + 1]
+            rec_bytes = rec.nbytes
         t = {} if packed is None else packed_tensors(packed[0], device)
     spans.count("pa.serve_init.h2d_bytes",
                 storage_nbytes([*out.values(), *t.values()]))
+    spans.count("pa.serve_init.mphf_record_bytes", rec_bytes)
     if packed is not None:
         cfg = packed[1]
         if t["vals_lo"].is_cuda:

@@ -66,6 +66,8 @@ from ..ops.map_kernel import (
     pack_reads,
     paired,
     paired_upload,
+    record_upload,
+    records,
     storage_nbytes,
     unpack_reads,
     upload,
@@ -104,29 +106,16 @@ class ShardedLookup(NamedTuple):
     @property
     def records(self) -> torch.Tensor:
         """An uploaded shard's [max_keys, RW] records: W key words, node,
-        offset, zero padding (record_words); raises ValueError when keys
-        and values are separate tensors."""
-        K, W = self.keys.shape
-        rw = record_words(W)
-        k, v = self.keys, self.values
-        if (k.stride() != (rw, 1) or v.shape != (K, 2)
-                or v.stride() != (rw, 1)
-                or v.data_ptr() != k.data_ptr() + 4 * W
-                or k.untyped_storage().data_ptr()
-                != v.untyped_storage().data_ptr()):
-            raise ValueError("keys and values must be column ranges of one "
-                             "record tensor (upload_lookup)")
-        return k.as_strided((K, rw), (rw, 1))
+        offset, zero padding (map_kernel.record_words); raises ValueError
+        when keys and values are separate tensors."""
+        if self.values.shape != (self.keys.shape[0], 2):
+            raise ValueError("values must be [max_keys, 2] (node, offset) "
+                             "beside the keys of one record tensor")
+        return records(self.keys, self.values)
 
     def nbytes(self) -> int:
         """Bytes of an uploaded shard, each storage once."""
         return storage_nbytes(self)
-
-
-def record_words(W: int) -> int:
-    """Words of a K8 record of W key words, node and offset: 4 (16 bytes)
-    for W <= 2, else 8, so a record never straddles a 32-byte sector."""
-    return 4 if W + 2 <= 4 else 8
 
 
 @dataclass(frozen=True)
@@ -270,16 +259,13 @@ def upload_lookup(lookup: ShardedLookup, shard: int, device) -> ShardedLookup:
     padding adds 4, 12 and 8 bytes per key."""
     (bits, ranks, seeds, masks, word_offsets, key_offsets, keys,
      values) = (a[shard] for a in lookup)
-    K, W = keys.shape
-    records = torch.zeros((K, record_words(W)), dtype=torch.int32,
-                          device=device)
-    records[:, :W] = _as_tensor(keys, device)
-    records[:, W:W + 2] = _as_tensor(values, device)
+    W = keys.shape[1]
+    rec = record_upload(keys, (values,), device)
     return ShardedLookup(
         *paired_upload(bits, ranks, device),
         *(_as_tensor(a, device)
           for a in (seeds, masks, word_offsets, key_offsets)),
-        records[:, :W], records[:, W:W + 2])
+        rec[:, :W], rec[:, W:W + 2])
 
 
 def route_queries(packed: torch.Tensor, lens: torch.Tensor, k: int,

@@ -214,6 +214,89 @@ def test_stats_kernel_matches_plain_on_cuda(k, L):
     assert got[2] > 0  # false positives: the verify path ran
 
 
+# key words W -> (k, L) of the MPHF record tests: 16-byte records at W = 1
+# (4 bytes of padding) and W = 2, 32-byte ones at W = 3 and 4
+RECORD_KL = {1: (15, 40), 2: (20, 64), 3: (33, 50), 4: (64, 96)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", sorted(RECORD_KL))
+def test_mphf_record_seed_and_seek_match_plain_on_cuda(W):
+    """K1 under the MPHF on the record layout, every position probed, and
+    with lazy seeds forced on, K1's residue-0 probes and K2's lazy seek
+    through the same record verify, against the plain passes, tolerance
+    0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    k, L = RECORD_KL[W]
+    meta, idx, packed, lens = _case(k, L, dict(SERVING, seed_index="mphf"),
+                                    "cuda")
+    assert meta.kmer_words == W and not meta.lazy_seeds
+    assert idx.kmer_records.shape[1] == mk.record_words(W)
+    lazy = dataclasses.replace(meta, lazy_seeds=True)
+    for m in (meta, lazy):
+        nh3 = kernels.seed_tables_cuda(m, idx, packed, lens)
+        assert torch.equal(nh3, mk.seed_tables(m, idx, packed, lens))
+        assert (nh3[..., 1] >= 0).any()
+        got = kernels.walk_cuda(m, idx, packed, lens, nh3)
+        want = mk.walk(m, idx, packed, lens, nh3)
+        torch.cuda.synchronize()
+        for f in want._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("serving", [False, True],
+                         ids=["whole", "mphf-serving"])
+@pytest.mark.parametrize("W", sorted(RECORD_KL))
+def test_mphf_record_stats_match_plain_on_cuda(W, serving):
+    """K3 on the record layout of the whole upload and of the MPHF serving
+    upload against the plain counts, tolerance 0, false positives
+    included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    k, L = RECORD_KL[W]
+    meta, idx, packed, lens = _case(k, L, dict(seed_index="mphf"), "cuda",
+                                    serving=serving)
+    got = kernels.stats_cuda(meta, idx, packed, lens)
+    want = stats.stats_counts(meta, idx, packed, lens)
+    torch.cuda.synchronize()
+    assert got.tolist() == want.tolist()
+    assert got[1] > 0 and got[2] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", sorted(RECORD_KL))
+def test_mphf_record_lookup_matches_plain_on_cuda(W):
+    """K8's lookup, which verifies through the same record helper as K1,
+    against dynamic_verified_lookup on each of two shards: keys, aliens
+    and all-zero queries, tolerance 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pseudoaligner_torch.ops.mphf_lookup import dynamic_verified_lookup
+    from pseudoaligner_torch.parallel import sharded_index as si
+
+    k, L = RECORD_KL[W]
+    image, _ = _data(np.random.default_rng(k + L), k, L)
+    lookup, n_levels = si.build_sharded_lookup(image, 2)
+    rng = np.random.default_rng(W)
+    keys = image.kmer_keys
+    q = np.concatenate([keys, rng.integers(0, 2**32, (500, W),
+                                           dtype=np.uint64).astype(np.uint32),
+                        np.zeros((300, W), np.uint32)])
+    qt = torch.from_numpy(q[rng.permutation(len(q))].view(np.int32))
+    qt = qt.to("cuda")
+    hits = 0
+    for s in range(2):
+        shard = si.upload_lookup(lookup, s, "cuda")
+        got = kernels.mphf_dynamic_cuda(qt, shard, n_levels)
+        want = dynamic_verified_lookup(qt, shard, n_levels)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), s
+        hits += int((got[:, 0] >= 0).sum())
+    assert hits >= len(keys)
+
+
 def _ec_inputs(rng, B, M, TW, n_ecs, device):
     """Random full-output node buffers (with -1 holes, n_nodes past the
     buffer, unmapped rows) over a random node -> class table, and random

@@ -102,11 +102,15 @@ def test_upload_pairs_hold_the_image_words(case):
         assert np.array_equal(up.mphf_ranks.numpy().view(np.uint32),
                               image.mphf.ranks)
         assert up.mphf_bits.data_ptr() == pairs.data_ptr()
-        # nbytes counts the pair storage once: the bytes of the arrays
+        # nbytes counts the pair and record storages once: the bytes of
+        # the arrays, and at W != 2 the records' zero padding
         names = [f.name for f in dataclasses.fields(mk.DeviceIndex)]
-        assert up.nbytes() == sum(getattr(up, n).numel() * 4 for n in names)
+        nk, W = image.kmer_keys.shape
+        pad = nk * 4 * (mk.record_words(W) - W - 2)
+        assert up.nbytes() == sum(getattr(up, n).numel() * 4
+                                  for n in names) + pad
         assert up.nbytes() == sum(np.asarray(getattr(pdev, n)).nbytes
-                                  for n in names)
+                                  for n in names) + pad
 
 
 @pytest.mark.parametrize("S", [1, 2, 4])
@@ -119,7 +123,7 @@ def test_shard_upload_layouts_hold_the_lookup(case, S):
     pimage = mk.image_from_reference(image)
     lookup, _n_levels = si.build_sharded_lookup(pimage, S)
     W = image.kmer_keys.shape[1]
-    rw = si.record_words(W)
+    rw = mk.record_words(W)
     assert rw == (4 if W <= 2 else 8)
     for s in range(S):
         port = si.upload_lookup(lookup, s, "cpu")
