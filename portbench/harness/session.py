@@ -43,6 +43,8 @@ class Run:
     setup_steps: list = field(default_factory=list)  # (step, seconds)
     ring: list = field(default_factory=list)  # judged rows of each slot
     shape: object = None  # reference.walk.Shape of the serving meta
+    hit_share: float | None = None  # of K1's probes, sampled for its work
+    judge_s: float = 0.0  # the reference's judgement, after the window
 
 
 def _launches(names):
@@ -136,18 +138,21 @@ def _judge(run: Run, g, kept, R: int) -> None:
 
 
 def _seed_work(cfg: dict, shape, g, codes, B: int, L: int):
-    """K1's least work per launch: its probes, with the share of hits
-    looked up in the reference graph for HIT_SAMPLE reads of each slot."""
+    """(K1's least work per launch, the hit share): its probes, with the
+    share of hits looked up in the reference graph for HIT_SAMPLE reads
+    of each slot."""
     from reference.graph import kmer_values
 
     k = int(cfg["k"])
     stride = 3 if shape.lazy else 1
-    share = [float(g.contains(kmer_values(
-        c.numpy()[:HIT_SAMPLE], k)[:, ::stride].reshape(-1)).mean())
-        for c in codes]
+    share = []
+    for c in codes:
+        v = kmer_values(c.numpy()[:HIT_SAMPLE], k)[:, ::stride]
+        share.append(float(g.contains(v.reshape((-1,) + v.shape[2:])).mean()))
+    hit_share = float(np.mean(share))
     probes = B * probe_positions(L, k, shape.lazy)
     return seed_work(B, L, k, cfg["seed_index"], shape.lazy, probes,
-                     probes * float(np.mean(share)))
+                     probes * hit_share), hit_share
 
 
 def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
@@ -227,8 +232,11 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     # the plain reference, once the program's state is freed
+    t = time.perf_counter()
     g = built.refgraph()
     _judge(run, g, run.tally.kept, R)
+    run.judge_s = time.perf_counter() - t
     if trace:
-        run.work["seed"] = _seed_work(cfg_file, run.shape, g, codes, B, L)
+        run.work["seed"], run.hit_share = _seed_work(cfg_file, run.shape, g,
+                                                     codes, B, L)
     return run

@@ -16,6 +16,11 @@ MIN_KMERS=1, STRANDED=true), in NumPy, with nothing of the program:
   first k-mer's left ones and the last k-mer's right ones) and, per
   extension base, the node it leads to.
 
+A k-mer of k from 1 to 32 is held as one uint64; one of k from 33 to 64
+as two words (hi, lo), the value hi * 2**64 + lo, so that the low word
+holds the last 32 bases.  Words compare most significant first, which is
+the order of the integers.
+
 `RefGraph.build` keeps the arrays a read's walk needs and `save`/`load`
 keep them as .npy files (loaded memory-mapped).
 """
@@ -28,6 +33,22 @@ import numpy as np
 
 ARRAYS = ("kmers", "node", "off", "node_ec", "node_exts", "node_len",
           "node_seq_start", "node_seq", "r_edge", "l_edge")
+# the build sorts the k-mers of each prefix of up to 2 bases apart, so
+# that a sort holds a sixteenth of the occurrences at a time
+BUCKET_BASES = 2
+NO_BUCKET = 255  # a position where no k-mer starts
+
+
+def n_words(k: int) -> int:
+    """uint64 words a k-mer is held in: one up to k = 32, else two."""
+    if not 1 <= k <= 64:
+        raise ValueError(f"k={k}: the reference holds k from 1 to 64")
+    return 1 if k <= 32 else 2
+
+
+def _word_bases(k: int) -> list:
+    """Bases in each word, most significant first."""
+    return [k] if n_words(k) == 1 else [k - 32, 32]
 
 
 def _mix64(x: np.ndarray) -> np.ndarray:
@@ -39,34 +60,107 @@ def _mix64(x: np.ndarray) -> np.ndarray:
     return x ^ (x >> np.uint64(31))
 
 
+def _kmer_words(bases: np.ndarray, k: int) -> tuple:
+    """[..., n] codes -> the word arrays of its k-mers, each
+    [..., n - k + 1] uint64, most significant first."""
+    n = max(bases.shape[-1] - k + 1, 0)
+    words, at = [], 0
+    for nb in _word_bases(k):
+        v = np.zeros(bases.shape[:-1] + (n,), np.uint64)
+        for j in range(at, at + nb):
+            v <<= np.uint64(2)
+            v |= bases[..., j:j + n]
+        words.append(v)
+        at += nb
+    return tuple(words)
+
+
 def kmer_values(bases: np.ndarray, k: int) -> np.ndarray:
-    """[..., n] codes -> [..., n - k + 1] uint64 k-mer values."""
-    n = bases.shape[-1] - k + 1
-    v = np.zeros(bases.shape[:-1] + (max(n, 0),), np.uint64)
-    c = bases.astype(np.uint64)
-    for j in range(k):
-        v <<= np.uint64(2)
-        v |= c[..., j:j + n]
-    return v
+    """[..., n] codes -> the k-mer values: [..., n - k + 1] uint64 up to
+    k = 32, else [..., n - k + 1, 2] words (hi, lo)."""
+    ws = _kmer_words(bases, k)
+    return ws[0] if len(ws) == 1 else np.stack(ws, axis=-1)
 
 
-def _occurrences(bases, starts, k):
-    """(value, tx, ext) of every k-mer occurrence of every transcript."""
-    n_tx = len(starts) - 1
-    vals = kmer_values(bases, k)
-    lens = np.diff(starts)
-    num = np.maximum(lens - k + 1, 0)
-    pos = np.repeat(starts[:-1], num) + (
-        np.arange(num.sum()) - np.repeat(np.cumsum(num) - num, num))
-    tx = np.repeat(np.arange(n_tx, dtype=np.uint64), num)
-    first = np.repeat(starts[:-1], num) == pos
-    last = np.repeat(starts[1:], num) == pos + k
-    ext = np.zeros(len(pos), np.uint64)
-    left = np.where(first, 0, bases[np.maximum(pos - 1, 0)]).astype(np.uint64)
-    ext |= np.where(first, np.uint64(0), np.uint64(16) << left)
-    right = bases[np.minimum(pos + k, len(bases) - 1)].astype(np.uint64)
-    ext |= np.where(last, np.uint64(0), np.uint64(1) << right)
-    return vals[pos], tx, ext
+def kmer_int(value) -> int:
+    """The integer of one k-mer value as `kmer_values` gives it."""
+    out = 0
+    for w in np.atleast_1d(value):
+        out = (out << 64) | int(w)
+    return out
+
+
+def _columns(values: np.ndarray, k: int) -> tuple:
+    """The word arrays of k-mer values as `kmer_values` gives them."""
+    if n_words(k) == 1:
+        return (values,)
+    return tuple(np.ascontiguousarray(values[..., i]) for i in range(2))
+
+
+def _push_right(ws: tuple, b, k: int) -> tuple:
+    """Each k-mer's successor by base b: (u << 2 | b) mod 4**k."""
+    nbs = _word_bases(k)
+    out = []
+    for i, w in enumerate(ws):
+        low = ws[i + 1] >> np.uint64(62) if i + 1 < len(ws) else b
+        out.append(((w << np.uint64(2)) | low)
+                   & np.uint64((1 << 2 * nbs[i]) - 1))
+    return tuple(out)
+
+
+def _push_left(ws: tuple, b, k: int) -> tuple:
+    """Each k-mer's predecessor by base b: (u >> 2) | b << 2(k - 1)."""
+    nbs = _word_bases(k)
+    out = []
+    for i, w in enumerate(ws):
+        top = b if i == 0 else ws[i - 1] & np.uint64(3)
+        out.append((w >> np.uint64(2)) | (top << np.uint64(2 * nbs[i] - 2)))
+    return tuple(out)
+
+
+def _base(ws: tuple, j: int, k: int) -> np.ndarray:
+    """Base j (0 the first) of each k-mer, as uint8."""
+    i = 0
+    for nb in _word_bases(k):
+        if j < nb:
+            break
+        j -= nb
+        i += 1
+    nb = _word_bases(k)[i]
+    return ((ws[i] >> np.uint64(2 * (nb - 1 - j)))
+            & np.uint64(3)).astype(np.uint8)
+
+
+def _order(ws: tuple) -> np.ndarray:
+    """The permutation that puts k-mers of word arrays `ws` in order (ties
+    in any order): by the low word, then stably by each word above."""
+    order = np.argsort(ws[-1])
+    for w in ws[-2::-1]:
+        order = order[np.argsort(w[order], kind="stable")]
+    return order
+
+
+def _find(table: tuple, query: tuple):
+    """(index, found) of each query k-mer in the sorted distinct `table`
+    (both word arrays): the first index whose k-mer is not below the
+    query's, and whether it is the query's."""
+    head = table[0]
+    a = np.searchsorted(head, query[0], "left")
+    if len(table) == 2:  # the low word, inside each run of equal hi
+        b = np.searchsorted(head, query[0], "right")
+        low, q = table[1], query[1]
+        live = np.nonzero(a < b)[0]
+        while len(live):
+            mid = (a[live] + b[live]) // 2
+            up = np.asarray(low[mid]) < q[live]
+            a[live[up]] = mid[up] + 1
+            b[live[~up]] = mid[~up]
+            live = live[a[live] < b[live]]
+    i = np.minimum(a, len(head) - 1)
+    found = np.ones(len(a), bool)
+    for w, q in zip(table, query):
+        found &= np.asarray(w[i]) == q
+    return a, found
 
 
 def _classes(pair_tx, pair_start):
@@ -101,18 +195,18 @@ def _unique_base(ext4: np.ndarray) -> np.ndarray:
     return lut[ext4.astype(np.int64)]
 
 
-def _joins(kmers, exts, ec, k):
+def _joins(ws, exts, ec, k):
     """Each k-mer's join successor (index, -1 none), cycles cut."""
-    n = len(kmers)
-    mask = np.uint64((1 << (2 * k)) - 1)
-    rb = _unique_base(exts & np.uint64(15))
-    lb = _unique_base(exts >> np.uint64(4))
+    n = len(ws[0])
+    rb = _unique_base(exts & 15)
+    lb = _unique_base(exts >> 4)
     src = np.nonzero(rb >= 0)[0]
-    succ_v = ((kmers[src] << np.uint64(2)) | rb[src].astype(np.uint64)) & mask
-    succ = np.searchsorted(kmers, succ_v)
-    if not (kmers[np.minimum(succ, n - 1)] == succ_v).all():
+    sw = tuple(w[src] for w in ws)
+    succ, found = _find(ws, _push_right(sw, rb[src].astype(np.uint64), k))
+    if not found.all():
         raise RuntimeError("an extension leads to no k-mer")
-    firstb = (kmers[src] >> np.uint64(2 * (k - 1))).astype(np.int64)
+    firstb = _base(sw, 0, k).astype(np.int64)
+    del sw
     ok = (lb[succ] == firstb) & (ec[src] == ec[succ]) & (succ != src)
     nxt = np.full(n, -1, np.int64)
     nxt[src[ok]] = succ[ok]
@@ -158,8 +252,61 @@ def _chains(nxt):
         up, dist = nu, nd
 
 
+def _bucket_ids(first: np.ndarray, starts: np.ndarray, k: int):
+    """([positions] uint8, buckets): the first bases of the k-mer that
+    starts at each position (`first`: its first word), packed, or
+    NO_BUCKET where no k-mer of one transcript starts."""
+    nb = _word_bases(k)[0]
+    c = min(BUCKET_BASES, nb)
+    bid = (first >> np.uint64(2 * (nb - c))).astype(np.uint8)
+    # positions from a transcript's start to k - 1 bases before its end
+    edge = np.zeros(len(bid) + 1, np.int8)
+    full = np.diff(starts) >= k
+    edge[starts[:-1][full]] += 1
+    edge[starts[1:][full] - k + 1] -= 1
+    bid[np.cumsum(edge[:-1], dtype=np.int8) == 0] = NO_BUCKET
+    return bid, 4 ** c
+
+
+def _distinct(bases, starts, k, pos, ws, tb):
+    """The k-mers starting at the sorted positions `pos` (all of one
+    bucket), of word arrays `ws`: (word arrays of the distinct k-mers in
+    order, their extensions, each one's distinct transcripts in order,
+    how many)."""
+    total = len(bases)
+    tx = np.searchsorted(starts, pos, "right") - 1
+    first = pos == starts[tx]
+    last = pos + k == starts[tx + 1]
+    left = bases[np.maximum(pos - 1, 0)]
+    right = bases[np.minimum(pos + k, total - 1)]
+    ext = (np.where(first, 0, 16 << left)
+           | np.where(last, 0, 1 << right)).astype(np.uint8)
+    del first, last, left, right
+    order = _order(ws)
+    ws = tuple(w[order] for w in ws)
+    newk = np.ones(len(pos), bool)
+    for w in ws:
+        newk[1:] &= w[1:] == w[:-1]
+    newk[1:] = ~newk[1:]
+    kstart = np.nonzero(newk)[0]
+    exts = np.bitwise_or.reduceat(ext[order], kstart)
+    rank = np.cumsum(newk) - 1
+    key = (rank.astype(np.uint64) << np.uint64(tb)) | tx[order].astype(
+        np.uint64)
+    key.sort()  # sorted and deduplicated here: np.unique may hash
+    keep = np.ones(len(key), bool)
+    keep[1:] = key[1:] != key[:-1]
+    key = key[keep]
+    pair_tx = key & np.uint64((1 << tb) - 1)
+    counts = np.bincount((key >> np.uint64(tb)).astype(np.int64),
+                         minlength=len(kstart))
+    return tuple(w[kstart] for w in ws), exts, pair_tx, counts
+
+
 class RefGraph:
-    """The arrays of the reference graph (see the module docstring)."""
+    """The arrays of the reference graph (see the module docstring).
+    `kmers` is [n] uint64 up to k = 32, else [2, n]: the hi words, then
+    the lo words, each row contiguous when loaded memory-mapped."""
 
     def __init__(self, k: int, arrays: dict):
         self.k = k
@@ -169,41 +316,39 @@ class RefGraph:
 
     @classmethod
     def build(cls, bases: np.ndarray, starts: np.ndarray, k: int):
+        nw = n_words(k)
         tb = max(1, (len(starts) - 2).bit_length())  # bits of a transcript
-        if 2 * k + tb > 64:
-            raise ValueError(f"k={k} with {len(starts) - 1} transcripts: "
-                             "the (k-mer, transcript) sort key needs "
-                             f"{2 * k + tb} bits")
-        v, tx, ext = _occurrences(bases, starts, k)
-        # one sort for each k-mer's extensions, one for its transcripts
-        ekey = np.sort((v << np.uint64(8)) | ext)
-        del ext
-        ev = ekey >> np.uint64(8)
-        newk = np.ones(len(ekey), bool)
-        newk[1:] = ev[1:] != ev[:-1]
-        kstart = np.nonzero(newk)[0]
-        kmers = ev[kstart]
-        exts = np.bitwise_or.reduceat(ekey & np.uint64(0xFF), kstart)
-        del ekey, ev, kstart
-        key = np.sort((v << np.uint64(tb)) | tx)
-        del v, tx
-        newp = np.ones(len(key), bool)
-        newp[1:] = key[1:] != key[:-1]
-        key = key[newp]  # the distinct (k-mer, transcript) pairs
-        kv = key >> np.uint64(tb)
-        newk = np.ones(len(key), bool)
-        newk[1:] = kv[1:] != kv[:-1]
-        kidx = np.cumsum(newk) - 1
-        pair_tx = key & np.uint64((1 << tb) - 1)
-        del key, kv, newk, newp
-        pair_start = np.searchsorted(kidx, np.arange(len(kmers)))
+        every = _kmer_words(bases, k)  # at every position
+        bid, n_buckets = _bucket_ids(every[0], starts, k)
+        parts = []
+        for b in range(n_buckets):
+            pos = np.flatnonzero(bid == b)
+            if len(pos).bit_length() + tb > 64:
+                raise ValueError(f"{len(pos)} k-mers in one bucket with "
+                                 f"{len(starts) - 1} transcripts: a "
+                                 "(rank, transcript) key needs "
+                                 f"{len(pos).bit_length() + tb} bits")
+            if len(pos):
+                parts.append(_distinct(bases, starts, k, pos,
+                                       tuple(w[pos] for w in every), tb))
+        del bid, every
+        ws = tuple(np.concatenate([p[0][i] for p in parts])
+                   for i in range(nw))
+        exts = np.concatenate([p[1] for p in parts])
+        pair_tx = np.concatenate([p[2] for p in parts])
+        counts = np.concatenate([p[3] for p in parts])
+        del parts
+        pair_start = np.zeros(len(counts), np.int64)
+        np.cumsum(counts[:-1], out=pair_start[1:])
+        del counts
         ec = _classes(pair_tx, pair_start)
-        del kidx, pair_tx, pair_start
-        nxt = _joins(kmers, exts, ec, k)
+        del pair_tx, pair_start
+        nxt = _joins(ws, exts, ec, k)
         head, off = _chains(nxt)
         del nxt
-        heads = np.nonzero(head == np.arange(len(kmers)))[0]
-        node_of_head = np.full(len(kmers), -1, np.int64)
+        n_k = len(ws[0])
+        heads = np.nonzero(head == np.arange(n_k))[0]
+        node_of_head = np.full(n_k, -1, np.int64)
         node_of_head[heads] = np.arange(len(heads))
         node = node_of_head[head]
         del node_of_head, head
@@ -213,35 +358,35 @@ class RefGraph:
         seq_start[1:] = np.cumsum(node_len)
         seq = np.zeros(int(seq_start[-1]), np.uint8)
         at = seq_start[node] + off
-        seq[at] = (kmers >> np.uint64(2 * (k - 1))).astype(np.uint8)
+        seq[at] = _base(ws, 0, k)
         last = np.nonzero(off == nlen_k[node] - 1)[0]
         lastk = np.empty(len(heads), np.int64)
         lastk[node[last]] = last
+        lw = tuple(w[last] for w in ws)
         for j in range(1, k):
-            seq[at[last] + j] = ((kmers[last] >> np.uint64(2 * (k - 1 - j)))
-                                 & np.uint64(3)).astype(np.uint8)
-        node_exts = ((exts[heads] & np.uint64(0xF0))
-                     | (exts[lastk] & np.uint64(0x0F))).astype(np.uint8)
-        mask = np.uint64((1 << (2 * k)) - 1)
+            seq[at[last] + j] = _base(lw, j, k)
+        del lw, at
+        node_exts = ((exts[heads] & 0xF0)
+                     | (exts[lastk] & 0x0F)).astype(np.uint8)
         r_edge = np.full((len(heads), 4), -1, np.int32)
         l_edge = np.full((len(heads), 4), -1, np.int32)
         for b in range(4):
             has_r = ((node_exts >> b) & 1).astype(bool)
-            sv = ((kmers[lastk[has_r]] << np.uint64(2)) | np.uint64(b)) & mask
-            si = np.searchsorted(kmers, sv)
-            if not ((kmers[si] == sv).all() and (off[si] == 0).all()):
+            si, found = _find(ws, _push_right(
+                tuple(w[lastk[has_r]] for w in ws), np.uint64(b), k))
+            if not (found.all() and (off[si] == 0).all()):
                 raise RuntimeError("a right edge leads to no node start")
             r_edge[has_r, b] = node[si]
             has_l = ((node_exts >> (4 + b)) & 1).astype(bool)
-            pv = (kmers[heads[has_l]] >> np.uint64(2)) | (
-                np.uint64(b) << np.uint64(2 * (k - 1)))
-            pi = np.searchsorted(kmers, pv)
-            if not ((kmers[pi] == pv).all()
+            pi, found = _find(ws, _push_left(
+                tuple(w[heads[has_l]] for w in ws), np.uint64(b), k))
+            if not (found.all()
                     and (off[pi] == nlen_k[node[pi]] - 1).all()):
                 raise RuntimeError("a left edge leads to no node end")
             l_edge[has_l, b] = node[pi]
         return cls(k, {
-            "kmers": kmers, "node": node.astype(np.int32),
+            "kmers": ws[0] if len(ws) == 1 else np.stack(ws),
+            "node": node.astype(np.int32),
             "off": off.astype(np.int32), "node_ec": ec[heads],
             "node_exts": node_exts, "node_len": node_len.astype(np.int32),
             "node_seq_start": seq_start, "node_seq": seq,
@@ -266,23 +411,34 @@ class RefGraph:
     # -- what a read's walk asks of the graph -----------------------------
 
     @property
+    def words(self) -> tuple:
+        """The k-mers' word arrays, most significant first."""
+        return (self.kmers,) if self.kmers.ndim == 1 else tuple(self.kmers)
+
+    @property
     def n_kmers(self) -> int:
-        return len(self.kmers)
+        return len(self.words[0])
 
     def lookup(self, value: int):
-        """(node, offset) of a k-mer value, or None."""
-        i = int(np.searchsorted(self.kmers, np.uint64(value)))
-        if i < len(self.kmers) and int(self.kmers[i]) == value:
-            return int(self.node[i]), int(self.off[i])
+        """(node, offset) of the k-mer of integer value `value`, or None."""
+        ws = self.words
+        a, b = 0, len(ws[0])
+        for i, w in enumerate(ws):  # the run of k-mers equal so far
+            q = np.uint64((value >> (64 * (len(ws) - 1 - i))) & (2**64 - 1))
+            a, b = (a + int(np.searchsorted(w[a:b], q, "left")),
+                    a + int(np.searchsorted(w[a:b], q, "right")))
+        if a < b:
+            return int(self.node[a]), int(self.off[a])
         return None
 
     def contains(self, values: np.ndarray) -> np.ndarray:
-        """Whether each of the uint64 k-mer values is in the graph."""
-        order = np.argsort(values, kind="stable")
-        sv = values[order]
-        i = np.minimum(np.searchsorted(self.kmers, sv), len(self.kmers) - 1)
-        out = np.empty(len(values), bool)
-        out[order] = np.asarray(self.kmers[i]) == sv
+        """Whether each of the k-mer values (as `kmer_values` gives them,
+        flat: [m] or [m, 2]) is in the graph."""
+        q = _columns(values, self.k)
+        order = _order(q)
+        _, found = _find(self.words, tuple(w[order] for w in q))
+        out = np.empty(len(order), bool)
+        out[order] = found
         return out
 
     def seq(self, node: int) -> np.ndarray:

@@ -31,7 +31,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .graph import RefGraph, kmer_values
+from .graph import RefGraph, kmer_int, kmer_values
 
 FLAG_RUNS = -2  # more class runs than slots
 FLAG_CAPPED = -3  # a cap cut the walk
@@ -70,7 +70,7 @@ def walk_read(g: RefGraph, read: np.ndarray, allowed: int = 2,
         while pos <= last_kmer:
             if count:
                 probes[0] += 1
-            hit = g.lookup(int(vals[pos]))
+            hit = g.lookup(kmer_int(vals[pos]))
             if hit is not None:
                 return pos, hit
             pos += 3

@@ -120,6 +120,12 @@ def main(argv=None) -> int:
           f"setup_s {run.setup_s:.3f} (" + ", ".join(
               f"{n} {t:.3f}" for n, t in run.setup_steps) + ")",
           file=sys.stderr)
+    print(f"reference graph loaded and answers judged in {run.judge_s:.2f} s",
+          file=sys.stderr)
+    if run.hit_share is not None:
+        print(f"K1 hit share {100 * run.hit_share:.4f}% (sampled probes of "
+              "each ring slot, looked up in the reference graph)",
+              file=sys.stderr)
     if run.tally.latencies:
         import numpy as np
 

@@ -20,8 +20,7 @@ RECIPE = {"recipe": "gencode_counts", "seed": 1, "genes": 80,
           "transcripts": 260, "family_len": [80, 400], "deletion": [5, 40]}
 
 
-@pytest.fixture(scope="module")
-def world():
+def _world(k: int, L: int):
     from pseudoaligner_torch.index.builder import build_index
 
     seqs, names, gm = transcriptome.make(RECIPE)
@@ -41,15 +40,26 @@ def world():
     names = names + [f"x{i}" for i in range(len(extra))]
     gm = dict(gm, **{f"x{i}": f"gx{i}" for i in range(len(extra))})
     flat = transcriptome.Flat.of(seqs)
-    image = build_index(seqs, names, gm, k=20)
-    g = RefGraph.build(flat.bases, flat.starts, 20)
-    tr = {"read_len": 75, "batch_reads": 2000, "sample_reads": 1,
+    image = build_index(seqs, names, gm, k=k)
+    g = RefGraph.build(flat.bases, flat.starts, k)
+    tr = {"read_len": L, "batch_reads": 2000, "sample_reads": 1,
           "unmapped_share": 0.05, "antisense_share": 0.25,
           "error_rate": 0.027,
           "expression": {"law": "zipf", "exponent": 0.5, "seed": 3}}
-    reads = torch.zeros((2000, 75), dtype=torch.uint8)
+    reads = torch.zeros((2000, L), dtype=torch.uint8)
     traffic.fill_ring(flat, tr, 2, [reads], "cpu")
     return image, g, reads.numpy()
+
+
+@pytest.fixture(scope="module")
+def world():
+    return _world(20, 75)
+
+
+@pytest.fixture(scope="module")
+def world64():
+    """k = 64, the reference CLI's other k-mer size, read at 150 bases."""
+    return _world(64, 150)
 
 
 def test_graph_matches_the_ports_index(world):
@@ -62,16 +72,14 @@ def test_graph_matches_the_ports_index(world):
         g.node_len.tolist())
 
 
-@pytest.mark.parametrize("seed_index", ["cuckoo", "mphf", "bucket1"])
-@pytest.mark.parametrize("caps", [None, (2, 1, 2), (6, 3, 5)])
-def test_reference_equals_the_ports_cpu_path(world, seed_index, caps):
+def _equals_the_ports_cpu_path(world, seed_index, caps):
     from pseudoaligner_torch.cli import serving_config
     from pseudoaligner_torch.models.aligner import Pseudoaligner
     from pseudoaligner_torch.ops import map_kernel
 
     image, g, reads = world
     B, L = reads.shape
-    cfg = serving_config(20, B, L, seed_index=seed_index)
+    cfg = serving_config(g.k, B, L, seed_index=seed_index)
     if caps is not None:
         w, lc, dc = caps
         cfg = dataclasses.replace(cfg, max_walk_iters=w, max_left_iters=lc,
@@ -88,16 +96,37 @@ def test_reference_equals_the_ports_cpu_path(world, seed_index, caps):
     assert ref.capped.any() and ref.mapped.any() and not ref.mapped.all()
 
 
-def test_the_control_fails(world):
-    """The reference with the per-segment mismatch budget taken to 0 (an
-    exact-match walk), put in the program's place, is judged wrong."""
+@pytest.mark.parametrize("seed_index", ["cuckoo", "mphf", "bucket1"])
+@pytest.mark.parametrize("caps", [None, (2, 1, 2), (6, 3, 5)])
+def test_reference_equals_the_ports_cpu_path(world, seed_index, caps):
+    _equals_the_ports_cpu_path(world, seed_index, caps)
+
+
+@pytest.mark.parametrize("seed_index", ["cuckoo", "mphf"])
+def test_reference_equals_the_ports_cpu_path_at_k64(world64, seed_index):
+    """Two-word k-mers in the reference against the port's W = 4 path,
+    at the serving caps of 150-base reads (forward 7, left 2, 3 slots)."""
+    _equals_the_ports_cpu_path(world64, seed_index, None)
+
+
+def _control_fails(world):
     from pseudoaligner_torch.cli import serving_config
     from pseudoaligner_torch.models.aligner import Pseudoaligner
 
     image, g, reads = world
-    al = Pseudoaligner(image, serving_config(20, len(reads), 75),
+    al = Pseudoaligner(image, serving_config(g.k, *reads.shape),
                        device="cpu")
     shape = _shape(al.meta)
     ref = answers(g, reads, shape)
     ctl = answers(g, reads, shape, allowed=0)
     assert wrong(ref, *control_outputs(ctl)).sum() > 0.05 * len(reads)
+
+
+def test_the_control_fails(world):
+    """The reference with the per-segment mismatch budget taken to 0 (an
+    exact-match walk), put in the program's place, is judged wrong."""
+    _control_fails(world)
+
+
+def test_the_control_fails_at_k64(world64):
+    _control_fails(world64)

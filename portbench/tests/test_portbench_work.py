@@ -42,3 +42,17 @@ def test_least_time_takes_the_longer_bound():
     assert work.least_s(3.35e12, 0) == pytest.approx(1.0)
     assert work.least_s(0, 67e12) == pytest.approx(1.0)
     assert work.least_s(3.35e12, 134e12) == pytest.approx(2.0)
+
+
+def test_seed_work_at_four_key_words_by_hand():
+    # k = 64: W = 4 words a key; B = 2 reads of L = 70, 5 words a read,
+    # P = 7 positions
+    nbytes, ops = work.seed_work(2, 70, 64, "cuckoo", True, probes=4, hits=3)
+    # reads 2*5*4, lens 2*4, nh3 2*7*12; hits 3*(64+8), a miss 2*64
+    assert nbytes == 40 + 8 + 168 + 216 + 128
+    # rolling 3*2*70; buckets tried 3 + 2 = 5, each 9*4+6 + 4*4
+    assert ops == 420 + 5 * 42 + 5 * 16
+    nbytes, ops = work.seed_work(2, 70, 64, "mphf", False, probes=8, hits=5)
+    # hits 5*(4+4+16+8), misses 3*4; a hash per probe, 4 compares a hit
+    assert nbytes == 40 + 8 + 168 + 5 * 32 + 3 * 4
+    assert ops == 420 + 8 * 42 + 5 * 4
