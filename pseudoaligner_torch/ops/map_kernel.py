@@ -530,7 +530,12 @@ def upload(dev: DeviceIndex, device, serving: MapMeta | None = None,
     takes the 16 bytes of the separate arrays; at W = 1, 3 and 4 its
     padding adds 4, 12 and 8 bytes per key.  The counter
     `pa.serve_init.mphf_record_bytes` holds the records' bytes, 0 where
-    they are not kept.
+    they are not kept.  Of a cuckoo serving upload,
+    `pa.serve_init.packed_bytes` counts the bit-packed arrays K5 decodes
+    (the values, and the keys at W = 2), and
+    `pa.serve_init.plain_key_bytes` the key rows that cross as they are
+    (at W != 2 when packed, every row when not); each is 0 where nothing
+    of its kind crossed, and both are 0 under another seed index.
 
     `pack` chooses the bit-packed upload of the cuckoo keys and values
     (`pack_serving_args`, unpacked on the device by `unpack_index` or, on a
@@ -583,6 +588,11 @@ def upload(dev: DeviceIndex, device, serving: MapMeta | None = None,
     spans.count("pa.serve_init.h2d_bytes",
                 storage_nbytes([*out.values(), *t.values()]))
     spans.count("pa.serve_init.mphf_record_bytes", rec_bytes)
+    spans.count("pa.serve_init.packed_bytes",
+                sum(a.nbytes for n, a in t.items() if n != "cuckoo"))
+    plain = t.get("cuckoo", out.get("cuckoo")) if cuckoo else None
+    spans.count("pa.serve_init.plain_key_bytes",
+                0 if plain is None else plain.nbytes)
     if packed is not None:
         cfg = packed[1]
         if t["vals_lo"].is_cuda:
