@@ -548,7 +548,7 @@ def seed_work(meta, idx, packed, lens):
     """K1: packed reads and lens in, nh3 out, plus the probes' reads."""
     B, P, k = packed.shape[0], meta.n_positions, meta.k
     pb, po = _probe_work(meta, idx, _probed_words(meta, packed, lens, False))
-    nbytes = packed.numel() * 4 + B * 4 + B * P * 12 + pb
+    nbytes = packed.numel() * 4 + B * 4 + B * meta.nh3_rows * 12 + pb
     return nbytes, po + 3 * k * B * P
 
 

@@ -21,7 +21,9 @@
 //               slot's W key words, node, offset, zero padding (one 16-
 //               or 32-byte load); K8's shard-local records have the same
 //               layout
-//   nh3         [B, P, 3] int32 (q, node, off)
+//   nh3         [B, G, 3] int32 (q, node, off): G = nh3_rows(P, lazy) rows,
+//               row j for position j under eager seeds and 3j under lazy
+//               ones (the residue-0 grid K1 probes)
 //
 // What bounds the kernels that use this file, and what the shared pieces do
 // about it: the seed probes are chains of dependent random loads into
@@ -509,31 +511,39 @@ __device__ __forceinline__ void seed_probe(const Params& p, const Levels& lv,
     seed_probe_as<W, MODE_CUCKOO>(p, lv, ix, w, node, off);
 }
 
-// One (read, residue r) row of the stride-3 next-hit table (ops/map_kernel.py
-// next_hit_table): walks the positions r, r+3, ... backwards and writes
-// nh3_row[pos] = (q, node, off) of the nearest seed q >= pos on the grid, or
-// (P, -1, -1) when there is none.  seed(pos, &node, &off) is asked only for
-// positions up to last_valid (len - k), and for none when `ask` is false; a
-// seed counts when its node is >= 0.  K1's seed pass and its next_hit entry
-// both run it over a tile in shared memory (SeedTile), so the table has one
-// definition.
-template <class Seed>
+// Rows of the next-hit table over P positions: the grid K1 probes, every
+// third position (residue 0) under lazy seeds, else every position
+// (MapMeta.nh3_rows in ops/map_kernel.py).
+__host__ __device__ inline int nh3_rows(int P, int lazy) {
+  return lazy ? (P + 2) / 3 : P;
+}
+
+// One (read, residue r) grid of the stride-3 next-hit table
+// (ops/map_kernel.py next_hit_table): walks the positions r, r+3, ...
+// backwards and writes row pos / S of nh3 = (q, node, off) of the nearest
+// seed q >= pos on the grid, or (P, -1, -1) when there is none.  S is the
+// table's stride: 1 (a row per position) or 3 (lazy seeds: residue 0's
+// rows alone, r = 0).  seed(pos / S, &node, &off) is asked only for
+// positions up to last_valid (len - k); a seed counts when its node is
+// >= 0.  K1's seed pass and its next_hit entry both run it over a tile in
+// shared memory (SeedTile), so the table has one definition.
+template <int S, class Seed>
 __device__ __forceinline__ void next_hit_residue(int P, int r, int last_valid,
-                                                 bool ask, Seed seed,
-                                                 int32_t* nh3_row) {
+                                                 Seed seed, int32_t* nh3) {
   int q = P, qn = -1, qo = -1;
   const int top = r + 3 * ((P - 1 - r) / 3);
   for (int pos = top; pos >= r; pos -= 3) {
-    if (ask && pos <= last_valid) {
+    const int row = pos / S;
+    if (pos <= last_valid) {
       int node, off;
-      seed(pos, &node, &off);
+      seed(row, &node, &off);
       if (node >= 0) {
         q = pos;
         qn = node;
         qo = off;
       }
     }
-    int32_t* out = nh3_row + (size_t)pos * 3;
+    int32_t* out = nh3 + (size_t)row * 3;
     out[0] = q;
     out[1] = qn;
     out[2] = qo;
@@ -571,51 +581,55 @@ __device__ __forceinline__ void block_fill(int32_t* dst, int n, int32_t v) {
 }
 
 // A tile of K1: R consecutive reads of a block, in dynamic shared memory
-// (int32 units): nh3 [R, P, 3] first (16-byte aligned for the store),
-// then node and off [R, P], then, for the probing entry, the reads' packed
+// (int32 units): nh3 [R, G, 3] first (16-byte aligned for the store),
+// then node and off [R, G], then, for the probing entry, the reads' packed
 // words with a zero word before and after each read, [R, nw + 2], and
-// lens [R].
+// lens [R].  G is the table's rows (nh3_rows): node and off hold the seed
+// of each row's position.
 struct SeedTile {
-  int R, P, nw;
+  int R, P, G, nw;
   int32_t* nh3;
   int32_t* node;
   int32_t* off;
   uint32_t* read;
   int32_t* len;
 
-  __host__ __device__ static size_t bytes(int R, int P, int nw) {
-    return (size_t)4 * R * (5 * P + (nw > 0 ? nw + 3 : 1));
+  __host__ __device__ static size_t bytes(int R, int G, int nw) {
+    return (size_t)4 * R * (5 * G + (nw > 0 ? nw + 3 : 1));
   }
 
-  __device__ SeedTile(int32_t* smem, int R_, int P_, int nw_)
-      : R(R_), P(P_), nw(nw_) {
+  __device__ SeedTile(int32_t* smem, int R_, int P_, int G_, int nw_)
+      : R(R_), P(P_), G(G_), nw(nw_) {
     nh3 = smem;
-    node = nh3 + (size_t)R * P * 3;
-    off = node + (size_t)R * P;
-    read = reinterpret_cast<uint32_t*>(off + (size_t)R * P);
+    node = nh3 + (size_t)R * G * 3;
+    off = node + (size_t)R * G;
+    read = reinterpret_cast<uint32_t*>(off + (size_t)R * G);
     len = reinterpret_cast<int32_t*>(read + (size_t)R * (nw > 0 ? nw + 2 : 0));
   }
 
-  // Phases B and C: the next-hit rows of the tile's nb reads from its seeds
-  // (node, off; residues 1 and 2 only filled when `ask12` is false), one
-  // thread per (read, residue), then the tile's nh3 [nb, P, 3] to global
-  // memory at `out` in 16-byte stores.
-  __device__ void scan_and_store(int k, bool ask12, int nb, int32_t* out) {
-    for (int i = threadIdx.x; i < nb * 3; i += blockDim.x) {
-      const int r = i / 3, res = i - 3 * r;
+  // Phases B and C: the next-hit rows of the tile's nb reads from their
+  // seeds (node, off), then the tile's nh3 [nb, G, 3] to global memory at
+  // `out` in 16-byte stores.  Stride S = 1 (G = P): one thread per (read,
+  // residue); S = 3 (lazy seeds, G = ceil(P / 3)): one thread per read over
+  // its residue-0 grid, the only rows the table has.
+  template <int S>
+  __device__ void scan_and_store(int k, int nb, int32_t* out) {
+    constexpr int NR = S == 1 ? 3 : 1;  // residue grids in a read's rows
+    for (int i = threadIdx.x; i < nb * NR; i += blockDim.x) {
+      const int r = i / NR, res = i - NR * r;
       if (res >= P) continue;
-      const int32_t* sn = node + (size_t)r * P;
-      const int32_t* so = off + (size_t)r * P;
-      next_hit_residue(
-          P, res, len[r] - k, ask12 || res == 0,
-          [&](int pos, int* n, int* o) {
-            *n = sn[pos];
-            *o = so[pos];
+      const int32_t* sn = node + (size_t)r * G;
+      const int32_t* so = off + (size_t)r * G;
+      next_hit_residue<S>(
+          P, res, len[r] - k,
+          [&](int row, int* n, int* o) {
+            *n = sn[row];
+            *o = so[row];
           },
-          nh3 + (size_t)r * P * 3);
+          nh3 + (size_t)r * G * 3);
     }
     __syncthreads();
-    block_copy(out, nh3, nb * P * 3);
+    block_copy(out, nh3, nb * G * 3);
   }
 };
 

@@ -15,8 +15,9 @@
 //     a read still active at a cap, or with more pushes than max_nodes, is
 //     "capped" (-3);
 //   - lazy re-seeds (cuckoo and bucket1): on-grid positions (kpos % 3 == 0)
-//     read nh3, off-grid positions probe the seed index in place
-//     (common.cuh seed_probe) and step by 3 on a miss;
+//     read nh3's row kpos / 3 (the table holds the residue-0 grid alone;
+//     row kpos under eager seeds), off-grid positions probe the seed index
+//     in place (common.cuh seed_probe) and step by 3 on a miss;
 //   - output: compact run-length EC ids in distinct_cap slots (-2 on
 //     overflow, -3 when capped, int16/uint8 narrowing), or the full node
 //     list when distinct_cap == 0.
@@ -85,7 +86,7 @@ __global__ void walk_kernel(pa::Params p,
 
   const int b = b0 + t;
   const int k = p.k, P = p.P, M = p.max_nodes, allowed = p.allowed;
-  const int32_t* tbl = nh3 + (size_t)b * P * 3;
+  const int32_t* tbl = nh3 + (size_t)b * pa::nh3_rows(P, p.lazy) * 3;
   const int len = lens[b];
   const int4* rows = reinterpret_cast<const int4*>(node_row);  // 3 per node
   auto rd = [&](int q) { return s_read[(q + 1) * T + t]; };
@@ -182,7 +183,7 @@ __global__ void walk_kernel(pa::Params p,
       } else if (p.lazy && kpos % 3 != 0) {
         seeking = true;
       } else {
-        const int32_t* row = tbl + (size_t)kpos * 3;
+        const int32_t* row = tbl + (size_t)(p.lazy ? kpos / 3 : kpos) * 3;
         if (row[0] < P) {
           kpos = row[0];
           node = row[1];

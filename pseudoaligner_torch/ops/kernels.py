@@ -310,11 +310,10 @@ def _stream(dev) -> int:
 def seed_tables_cuda(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
                      lens: torch.Tensor) -> torch.Tensor:
     """K1: packed [B, ceil(L/16)] int32 reads, lens [B] int32 ->
-    nh3 [B, P, 3] int32 (see csrc/seed.cu)."""
+    nh3 [B, meta.nh3_rows, 3] int32 (see csrc/seed.cu)."""
     B, dev = _check_inputs(meta, idx, packed, lens)
     lib = _load()
-    nh3 = torch.empty((B, meta.n_positions, 3), dtype=torch.int32,
-                      device=dev)
+    nh3 = torch.empty((B, meta.nh3_rows, 3), dtype=torch.int32, device=dev)
     params, ptrs = _params(meta, B), _index_ptrs(idx)
     rc = lib.pa_seed_tables(
         params.data_ptr(), ptrs.data_ptr(), dev.index, packed.data_ptr(),
@@ -337,7 +336,7 @@ def walk_cuda(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
     # the walk probes only in lazy seeks: without them it reads no seed
     # index (the k-mer-partitioned graph carries a placeholder one)
     B, dev = _check_inputs(meta, idx, packed, lens, probes=meta.lazy_seeds)
-    _check("nh3", nh3, torch.int32, (B, meta.n_positions, 3), dev)
+    _check("nh3", nh3, torch.int32, (B, meta.nh3_rows, 3), dev)
     lib = _load()
     mapped = torch.empty(B, dtype=torch.bool, device=dev)
     mismatches = torch.empty(B, dtype=torch.int32, device=dev)

@@ -5,8 +5,10 @@ reads goes through two passes:
 
 - the seed pass (`seed_tables`): every probed read position's k-mer is
   looked up in the seed index, and a stride-3 next-hit table
-  `nh3 [B, P, 3]` gives, for each position p, the nearest hit q >= p on
-  p's residue grid with its (node, offset);
+  `nh3 [B, meta.nh3_rows, 3]` gives, for each probed position p, the
+  nearest hit q >= p on p's residue grid with its (node, offset): a row
+  per position, or under lazy seeds a row per residue-0 position (row j
+  for position 3j), the only ones probed;
 - the walk (`walk`): per read, left extension under the per-segment SNP
   budget, then the forward unitig walk with re-seeds from `nh3` (or lazy
   seek probes off the residue-0 grid), iteration caps, and the compact
@@ -176,6 +178,14 @@ class MapMeta:
     @property
     def n_positions(self) -> int:
         return self.read_len - self.k + 1
+
+    @property
+    def nh3_rows(self) -> int:
+        """Rows of the next-hit table a step builds: the grid the seed pass
+        probes, every third position (residue 0) under lazy seeds, else
+        every position (common.cuh nh3_rows)."""
+        P = self.n_positions
+        return (P + 2) // 3 if self.lazy_seeds else P
 
     @property
     def kmer_words(self) -> int:
@@ -795,48 +805,53 @@ def seed_probe(meta: MapMeta, idx: DeviceIndex, words: torch.Tensor):
     return cuckoo_lookup(meta, idx, words)
 
 
-def next_hit_table(seed_node, seed_off, lens, k: int, P: int):
-    """Mask invalid positions, then per stride-3 residue a suffix min
-    (flipped cummin) of the valid positions: nh3[b, p] = (q, node@q,
-    off@q) for the nearest valid q >= p on p's residue grid, (P, -1, -1)
-    when there is none."""
-    B = seed_node.shape[0]
-    dev = seed_node.device
-    pos = torch.arange(P, dtype=torch.int64, device=dev)
-    valid = (seed_node >= 0) & (pos[None, :]
-                                <= lens.to(torch.int64)[:, None] - k)
-    node = torch.where(valid, seed_node, -1)
-    off = torch.where(valid, seed_off, -1)
+def _grid_next_hit(node, off, lens, k: int, P: int, r: int):
+    """Seeds node / off [B, n] int32 at the positions r, r + 3, ... of one
+    residue grid (-1 where a position has none) -> that grid's next-hit
+    rows [B, n, 3] int32: (q, node@q, off@q) for the nearest valid q >= each
+    position on the grid (a suffix min, flipped cummin), (P, -1, -1) when
+    there is none.  A seed is valid at positions up to len - k."""
+    n = node.shape[1]
+    pos = r + 3 * torch.arange(n, dtype=torch.int64, device=node.device)
+    valid = (node >= 0) & (pos[None, :]
+                           <= lens.to(torch.int64)[:, None] - k)
     cand = torch.where(valid, pos[None, :], P)
-    nh3 = torch.empty((B, P, 3), dtype=torch.int32, device=dev)
+    q = torch.flip(torch.cummin(torch.flip(cand, [1]), dim=1).values, [1])
+    qi = ((q - r) // 3).clamp(max=n - 1)
+    hit = q < P
+    return torch.stack([q.to(torch.int32),
+                        torch.where(hit, node.gather(1, qi), -1),
+                        torch.where(hit, off.gather(1, qi), -1)], dim=-1)
+
+
+def next_hit_table(seed_node, seed_off, lens, k: int, P: int):
+    """Seeds at every position, seed_node / seed_off [B, P] int32 -> the
+    eager table nh3 [B, P, 3] int32: nh3[b, p] = (q, node@q, off@q) for
+    the nearest valid q >= p on p's residue grid, (P, -1, -1) when there
+    is none."""
+    B = seed_node.shape[0]
+    nh3 = torch.empty((B, P, 3), dtype=torch.int32, device=seed_node.device)
     for r in range(min(3, P)):
-        c = cand[:, r::3]
-        q = torch.flip(torch.cummin(torch.flip(c, [1]), dim=1).values, [1])
-        qi = q.clamp(max=P - 1)
-        nh3[:, r::3, 0] = q.to(torch.int32)
-        nh3[:, r::3, 1] = torch.where(q < P, node.gather(1, qi), -1)
-        nh3[:, r::3, 2] = torch.where(q < P, off.gather(1, qi), -1)
+        nh3[:, r::3] = _grid_next_hit(seed_node[:, r::3], seed_off[:, r::3],
+                                      lens, k, P, r)
     return nh3
 
 
 def seed_tables(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
                 lens: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch seed pass: packed reads -> nh3 [B, P, 3] int32.
+    """Plain PyTorch seed pass: packed reads -> nh3 [B, meta.nh3_rows, 3]
+    int32.
 
-    With meta.lazy_seeds only residue-0 positions are probed; residues 1
-    and 2 stay all (P, -1, -1) and the walk probes them lazily."""
+    With meta.lazy_seeds only residue-0 positions are probed, and the
+    table holds their grid alone (row j for position 3j): the walk probes
+    the other residues lazily and never reads a row for them."""
     P = meta.n_positions
     reads = unpack_reads(packed, meta.read_len)
     kmers = all_kmers(reads, meta.k)
     if meta.lazy_seeds:
-        n3, o3 = seed_probe(meta, idx, kmers[:, ::3])
-        node = torch.full((reads.shape[0], P), -1, dtype=torch.int32,
-                          device=reads.device)
-        off = node.clone()
-        node[:, ::3] = n3
-        off[:, ::3] = o3
-    else:
-        node, off = seed_probe(meta, idx, kmers)
+        node, off = seed_probe(meta, idx, kmers[:, ::3])
+        return _grid_next_hit(node, off, lens, meta.k, P, 0)
+    node, off = seed_probe(meta, idx, kmers)
     return next_hit_table(node, off, lens, meta.k, P)
 
 
@@ -925,6 +940,9 @@ def walk(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
     lens64 = ctx.lens
     node_row = idx.node_row.to(torch.int64)
 
+    if tuple(nh3.shape) != (B, meta.nh3_rows, 3):
+        raise ValueError(f"nh3: shape {tuple(nh3.shape)}, expected "
+                         f"{(B, meta.nh3_rows, 3)}")
     q0 = nh3[:, 0, 0].to(torch.int64)
     node0 = nh3[:, 0, 1].to(torch.int64)
     off0 = nh3[:, 0, 2].to(torch.int64)
@@ -1004,7 +1022,8 @@ def walk(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
         else:
             tbl = can_seek
             enter_seek = torch.zeros_like(can_seek)
-        trip = nh3[ctx.rows, kp.clamp(0, P - 1)].to(torch.int64)
+        row = kp // 3 if meta.lazy_seeds else kp
+        trip = nh3[ctx.rows, row.clamp(0, meta.nh3_rows - 1)].to(torch.int64)
         found = tbl & (trip[:, 0] < P)
         node2 = torch.where(follow, nxt, torch.where(found, trip[:, 1], node))
         koff2 = torch.where(follow, 0, torch.where(found, trip[:, 2], koff))
@@ -1128,6 +1147,8 @@ def _map_packed(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
         nh3 = seed_tables_cuda(meta, idx, packed, lens)
     else:
         nh3 = seed_tables(meta, idx, packed, lens)
+    spans.count("pa.seed.nh3_bytes", nh3.numel() * nh3.element_size())
+    spans.count("pa.seed.tables")
     return walk_from_seeds(meta, idx, packed, lens, nh3)
 
 

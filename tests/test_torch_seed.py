@@ -1,6 +1,7 @@
 """PyTorch port vs the JAX reference: cuckoo probe and the next-hit table
 (the plain PyTorch side of the seed kernel K1)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,10 +10,12 @@ import torch
 from pseudoaligner_tpu.config import AlignerConfig
 from pseudoaligner_tpu.dna import pack_kmers
 from pseudoaligner_tpu.ops import map_kernel as ref_mk
+from pseudoaligner_torch import spans
 from pseudoaligner_torch.ops import map_kernel as mk
 
 from .torch_helpers import (
     _fuzz_reads,
+    assert_results_equal,
     build,
     make_batch,
     polyt_transcripts,
@@ -20,6 +23,7 @@ from .torch_helpers import (
 )
 
 K_L = {20: 64, 64: 96}
+_MAP_JIT = jax.jit(ref_mk.map_batch, static_argnums=0)
 
 
 @pytest.fixture(scope="module", params=[20, 64])
@@ -47,12 +51,88 @@ def test_seed_tables_match_reference(case, lazy):
     idx, pmeta = port_index(dev_np, meta)
     packed = torch.from_numpy(ref_mk.pack_reads_host(codes).view(np.int32))
     got = mk.seed_tables(pmeta, idx, packed, torch.from_numpy(lens))
-    assert got.dtype == torch.int32 and got.shape == ref.shape
-    assert np.array_equal(got.numpy(), ref)
+    P = meta.n_positions
     # the table really holds hits, and lazy mode leaves residues 1, 2 empty
-    assert (ref[:, :, 0] < meta.n_positions).any()
+    # in the reference's: the port's lazy table holds the residue-0 rows
+    # alone
+    assert (ref[:, :, 0] < P).any()
     if lazy:
-        assert (ref[:, 1::3, 0] == meta.n_positions).all()
+        assert (ref[:, np.arange(P) % 3 != 0] == [P, -1, -1]).all()
+        ref = ref[:, ::3]
+    assert got.dtype == torch.int32
+    assert got.shape == (len(lens), pmeta.nh3_rows, 3) == ref.shape
+    assert pmeta.nh3_rows == ((P + 2) // 3 if lazy else P)
+    assert np.array_equal(got.numpy(), ref)
+
+
+def _snp_reads(rng, seqs, L, n):
+    """Windows of L bases with one to three substitutions each."""
+    reads = []
+    for i in range(n):
+        s = seqs[int(rng.integers(len(seqs)))]
+        st = int(rng.integers(0, len(s) - L + 1))
+        w = s[st : st + L].copy()
+        for p in rng.integers(0, L, int(rng.integers(1, 4))):
+            w[p] = (w[p] + 1 + rng.integers(0, 3)) % 4
+        reads.append((f"snp{i}", w))
+    return reads
+
+
+@pytest.mark.parametrize("extra", [44, 42, 40, 0],
+                         ids=["P%3=0", "P%3=1", "P%3=2", "L=k"])
+def test_lazy_table_rows_and_map_match_reference(case, extra):
+    """Under lazy seeds the port's table has ceil(P/3) rows, at each P % 3
+    and at L = k (one row), and the step walking from it equals the
+    reference's map_batch field by field.  A zero mismatch budget ends a
+    segment at each substitution, so walks re-seed, on the residue-0 grid
+    from the table's row kpos / 3."""
+    k, seqs, image, _ = case
+    L = k + extra
+    P = L - k + 1
+    rng = np.random.default_rng(L)
+    reads = [(rid, w[:L]) for rid, w in
+             _fuzz_reads(rng, seqs, k=k, n=120, L=max(L, k + 1))]
+    reads += _snp_reads(rng, seqs, L, 160)
+    cfg = AlignerConfig(k=k, max_read_len=L, lazy_seeds=True,
+                        allowed_mismatches=0, distinct_cap=0,
+                        max_nodes=2 * L, left_compact=0.0,
+                        bitset_tx_threshold=0, pool_overlap=False)
+    dev_np, meta = ref_mk.device_index_from_image(image, cfg)
+    codes, lens = make_batch(reads, len(reads) + 5, L)  # padding rows
+    ref = _MAP_JIT(meta, dev_np, codes.astype(np.int32), lens)
+    idx, pmeta = port_index(dev_np, meta)
+    packed = torch.from_numpy(ref_mk.pack_reads_host(codes).view(np.int32))
+    lens_t = torch.from_numpy(lens)
+    nh3 = mk.seed_tables(pmeta, idx, packed, lens_t)
+    assert tuple(nh3.shape) == (len(lens), (P + 2) // 3, 3)
+    assert pmeta.nh3_rows == (P + 2) // 3
+    got = mk.map_batch_packed(pmeta, idx, packed, lens_t)
+    assert_results_equal(ref, got, f"L={L}")
+    assert np.asarray(ref.mapped).any()
+
+
+@pytest.mark.parametrize("lazy", [True, False])
+def test_nh3_counters(case, lazy):
+    """The step counts each next-hit table it allocates and its bytes:
+    B * ceil(P/3) * 12 a table under lazy seeds, B * P * 12 eager."""
+    k, _, image, reads = case
+    L = K_L[k]
+    P = L - k + 1
+    cfg = AlignerConfig(k=k, max_read_len=L, lazy_seeds=lazy,
+                        pool_overlap=False)
+    dev_np, meta = ref_mk.device_index_from_image(image, cfg)
+    idx, pmeta = port_index(dev_np, meta)
+    B = 96
+    codes, lens = make_batch(reads, B, L)
+    packed = torch.from_numpy(ref_mk.pack_reads_host(codes).view(np.int32))
+    names = ("pa.seed.nh3_bytes", "pa.seed.tables")
+    before = spans.snapshot()["counters"]
+    for _ in range(2):
+        mk.map_batch_packed(pmeta, idx, packed, torch.from_numpy(lens))
+    after = spans.snapshot()["counters"]
+    nbytes, tables = (after[n] - before.get(n, 0) for n in names)
+    assert tables == 2
+    assert nbytes / tables == B * ((P + 2) // 3 if lazy else P) * 12
 
 
 def test_cuckoo_lookup_every_kmer(case):
