@@ -76,29 +76,6 @@ def _check_k(k: int) -> bool:
     return True
 
 
-def _serving_config(k: int, args) -> AlignerConfig:
-    """The reference CLI's serving shape: compact EC output at
-    distinct_cap=3 with read-length-proportional walk caps and a matching
-    node buffer.  Lanes the caps cut off take the exact host re-map (-3
-    channel), so per-read output is byte-identical to the uncapped debug
-    shape — the caps only move rare work to the overlapped host mapper."""
-    wcap = max(3, args.max_read_len // 20)
-    lcap = 2
-    kw = {}
-    if hasattr(args, "seed_index"):  # count has no flag: dataclass default
-        kw["seed_index"] = args.seed_index
-    return AlignerConfig(
-        k=k,
-        batch_size=args.batch_size,
-        max_read_len=args.max_read_len,
-        distinct_cap=3,
-        max_walk_iters=wcap,
-        max_left_iters=lcap,
-        max_nodes=wcap + lcap + 2,
-        **kw,
-    )
-
-
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pseudoaligner-torch",
@@ -199,14 +176,24 @@ def open_index(path: str):
 
 
 def serving_config(k: int, batch_size: int, max_read_len: int,
-                   seed_index: str = "cuckoo"):
-    """The AlignerConfig `map` serves with: compact output at
-    distinct_cap=3 and read-length-proportional walk caps (the reference
-    CLI's serving shape; reads the caps cut off re-map exactly on the
-    host)."""
-    return _serving_config(k, argparse.Namespace(
-        batch_size=batch_size, max_read_len=max_read_len,
-        seed_index=seed_index))
+                   seed_index: str = "cuckoo") -> AlignerConfig:
+    """The AlignerConfig `map` and `count` serve with, the reference CLI's
+    serving shape: compact EC output at distinct_cap=3 with
+    read-length-proportional walk caps and a matching node buffer.  Reads
+    the caps cut off take the exact host re-map (-3 channel), so per-read
+    output is byte-identical to the uncapped full shape."""
+    wcap = max(3, max_read_len // 20)
+    lcap = 2
+    return AlignerConfig(
+        k=k,
+        batch_size=batch_size,
+        max_read_len=max_read_len,
+        seed_index=seed_index,
+        distinct_cap=3,
+        max_walk_iters=wcap,
+        max_left_iters=lcap,
+        max_nodes=wcap + lcap + 2,
+    )
 
 
 def cmd_index(args) -> int:

@@ -263,10 +263,7 @@ class Pseudoaligner:
     """Index on a torch device + the batched mapping engine.
 
     `device` is where the index lives and the step runs: "cuda" (the
-    default; the CUDA kernels) or "cpu" (the plain PyTorch passes).  The
-    TPU-only knobs of AlignerConfig (pool_overlap, walk_unroll,
-    walk_straightline, left_compact, walk_split, walk_compact,
-    seed_compact) are read and ignored; see ops/map_kernel.py."""
+    default; the CUDA kernels) or "cpu" (the plain PyTorch passes)."""
 
     def __init__(
         self,

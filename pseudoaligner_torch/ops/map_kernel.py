@@ -37,15 +37,9 @@ tensor code written from the reference's semantics, independent of the
 CUDA sources; tests hold them equal to the JAX reference and
 chip_smoke.py holds the kernels equal to them on the card.
 
-TPU-only knobs of AlignerConfig are read and ignored here: pool_overlap /
-pool_stride, walk_unroll, walk_straightline, left_compact, walk_split /
-walk_compact and seed_compact.  The port always uses the plain,
-non-overlapping 2-bit pool with meta.pool_pad front padding and no lane
-compaction: each read's walk runs to its own iteration caps.  The
-reference's left_compact capacity overflow (-3 on lanes beyond the
-compacted buffer) therefore has no counterpart; those reads come out of the
-port with their exact result, and emitted records are identical because
-the reference re-maps its -3 reads exactly on the host.
+The reference's left-loop lane compaction flags reads beyond its buffer
+-3; the port has no such buffer and maps those reads exactly, and the
+records agree because the reference re-maps its -3 reads on the host.
 
 `upload` may ship a large cuckoo table bit-packed (`pack_serving_args`)
 and unpack it on the device (`unpack_index`, or csrc/unpack.cu on a GPU)
@@ -73,8 +67,6 @@ from ..index.cuckoo import (
     build_bucket1,
     build_cuckoo_fast,
 )
-from ..index.image import IndexImage
-from ..index.mphf import Mphf
 from .hashing import MASK32, hash_kmer
 from .kmers import all_kmers
 from .mphf_lookup import MphfMeta, verified_lookup
@@ -383,34 +375,6 @@ def _make_meta(image, config: AlignerConfig, tx_words: int,
         ec_out_16=compact and image.n_ecs < 2**15 - 4,
         cov_out_8=compact and config.max_read_len <= 255,
     )
-
-
-def from_jax_device_index(dev_np, meta) -> tuple[DeviceIndex, MapMeta]:
-    """The reference's numpy DeviceIndex and MapMeta -> the port's, so
-    both engines compute on the same arrays.  Reads them duck-typed, as
-    plain attributes.  Takes every seed index and the bitset fields
-    (tx_words, ec_bits), but needs the non-overlapping pool
-    (pool_stride = 0)."""
-    if meta.seed_index not in SEED_INDEXES or meta.pool_stride != 0:
-        raise ValueError(f"need a seed_index of {SEED_INDEXES} and "
-                         f"pool_stride=0, got {meta.seed_index!r}, "
-                         f"{meta.pool_stride}")
-    dev = DeviceIndex(**{f.name: np.asarray(getattr(dev_np, f.name))
-                         for f in fields(DeviceIndex)})
-    kw = {f.name: getattr(meta, f.name) for f in fields(MapMeta)}
-    kw["mphf"] = MphfMeta.of(meta.mphf)
-    return dev, MapMeta(**kw)
-
-
-def image_from_reference(image) -> IndexImage:
-    """The reference's IndexImage -> the port's, reading its arrays as
-    plain attributes (the arrays are shared, not copied)."""
-    m = image.mphf
-    mphf = Mphf(**{f: getattr(m, f) for f in (
-        "n_keys", "seeds", "masks", "word_offsets", "key_offsets", "bits",
-        "ranks")})
-    kw = {f.name: getattr(image, f.name) for f in fields(IndexImage)}
-    return IndexImage(**dict(kw, mphf=mphf))
 
 
 def _as_tensor(a: np.ndarray, device) -> torch.Tensor:

@@ -1124,7 +1124,7 @@ def _count_batched(aligner, r1_path, r2_path, chem, whitelist) -> CellCounts:
         from .pipeline import DepthPipeline, prefetch_iter
 
         pipe = DepthPipeline(
-            getattr(aligner.config, "pipeline_depth", 1),
+            aligner.config.pipeline_depth,
             prepare=lambda t, _n: (
                 aligner.emit_prepare(t[0], t[1], defer_group=True), t[2]),
             # grouping on the ordered single-worker render pool;

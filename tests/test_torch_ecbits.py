@@ -23,6 +23,7 @@ from .torch_helpers import (
     assert_results_equal,
     build,
     family_transcripts,
+    image_from_reference,
     make_batch,
     polyt_transcripts,
     port_index,
@@ -56,7 +57,7 @@ def test_bitsets_and_tx_words_match_reference(data, k):
                             bitset_tx_threshold=thresh)
         ref_dev, ref_meta = ref_mk.device_index_from_image(image, cfg)
         dev, meta = mk.device_index_from_image(
-            mk.image_from_reference(image), PortConfig(
+            image_from_reference(image), PortConfig(
                 k=k, max_read_len=96, bitset_tx_threshold=thresh))
         assert meta.tx_words == ref_meta.tx_words
         assert meta.tx_words == (

@@ -31,7 +31,7 @@ from pseudoaligner_torch.ops import map_kernel as mk
 from pseudoaligner_torch.parallel import graph_walk as gw
 from pseudoaligner_torch.parallel import sharded_index as si
 
-from .torch_helpers import build, family_transcripts
+from .torch_helpers import build, family_transcripts, image_from_reference
 
 
 @pytest.fixture(scope="module")
@@ -85,7 +85,7 @@ def test_serve_fetch_matches_reference(image, S, L, windowed):
     cfg = dict(k=20, batch_size=64, max_read_len=L, distinct_cap=0,
                max_nodes=64, lazy_seeds=False)
     _, meta = device_index_from_image(image, AlignerConfig(**cfg))
-    pimage = mk.image_from_reference(image)
+    pimage = image_from_reference(image)
     _, pmeta = mk.device_index_from_image(pimage, PortConfig(**cfg))
     ref_graph, nb = ref_build_graph(image, meta, S)
     graph, pnb = si.build_sharded_graph(pimage, pmeta, S)

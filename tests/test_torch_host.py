@@ -17,7 +17,6 @@ from pseudoaligner_torch import golden as port_golden
 from pseudoaligner_torch import serde as port_serde
 from pseudoaligner_torch.index import builder as port_builder
 from pseudoaligner_torch.io.fastq import FastqReader as PortReader
-from pseudoaligner_torch.ops.map_kernel import image_from_reference
 from pseudoaligner_torch.ops.native import HostMapper as PortHostMapper
 from pseudoaligner_tpu import golden as ref_golden
 from pseudoaligner_tpu import serde as ref_serde
@@ -28,6 +27,7 @@ from pseudoaligner_tpu.ops.native import HostMapper as RefHostMapper
 from .torch_helpers import (
     _fuzz_reads,
     family_transcripts,
+    image_from_reference,
     polyt_transcripts,
     write_fastq,
 )
@@ -286,9 +286,19 @@ def test_golden_aligner_matches_reference(images):
     assert port_golden.intersect(a, b) == ref_golden.intersect(a, b)
 
 
+# the reference's TPU execution knobs, which the port's config leaves out
+TPU_ONLY_FIELDS = ("walk_unroll", "walk_straightline", "left_compact",
+                   "walk_split", "walk_compact", "seed_compact",
+                   "pool_overlap")
+
+
 def test_config_copy_matches_reference():
     from pseudoaligner_torch.config import AlignerConfig as PortConfig
     from pseudoaligner_tpu.config import AlignerConfig as RefConfig
 
+    ref = [(f.name, f.default) for f in dataclasses.fields(RefConfig)]
+    assert {n for n, _ in ref} >= set(TPU_ONLY_FIELDS)
     assert ([(f.name, f.default) for f in dataclasses.fields(PortConfig)]
-            == [(f.name, f.default) for f in dataclasses.fields(RefConfig)])
+            == [(n, d) for n, d in ref if n not in TPU_ONLY_FIELDS])
+    with pytest.raises(TypeError):
+        PortConfig(left_compact=0.5)

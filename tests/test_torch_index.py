@@ -10,7 +10,12 @@ from pseudoaligner_tpu.config import AlignerConfig
 from pseudoaligner_tpu.ops import map_kernel as ref_mk
 from pseudoaligner_torch.ops import map_kernel as mk
 
-from .torch_helpers import _random_transcripts, build, polyt_transcripts
+from .torch_helpers import (
+    _random_transcripts,
+    build,
+    from_jax_device_index,
+    polyt_transcripts,
+)
 
 ARRAYS = ("pool_rows", "node_row", "cuckoo", "cuckoo_vals", "mphf_bits",
           "mphf_ranks", "kmer_keys", "kmer_node", "kmer_offset", "ec_bits")
@@ -46,7 +51,7 @@ def test_device_index_matches_reference(image_and_config):
 def test_from_jax_device_index_round_trip(image_and_config):
     image, cfg = image_and_config
     ref_dev, ref_meta = ref_mk.device_index_from_image(image, cfg)
-    dev, meta = mk.from_jax_device_index(ref_dev, ref_meta)
+    dev, meta = from_jax_device_index(ref_dev, ref_meta)
     own_dev, own_meta = mk.device_index_from_image(image, cfg)
     assert meta == own_meta
     up = mk.upload(dev, "cpu")
@@ -70,7 +75,7 @@ def test_from_jax_rejects_overlapped_pool():
     ref_dev, ref_meta = ref_mk.device_index_from_image(image, cfg)
     assert ref_meta.pool_stride > 0
     with pytest.raises(ValueError):
-        mk.from_jax_device_index(ref_dev, ref_meta)
+        from_jax_device_index(ref_dev, ref_meta)
     with pytest.raises(ValueError, match="seed_index"):
         mk.device_index_from_image(
             image, dataclasses.replace(cfg, seed_index="cuckoo3"))

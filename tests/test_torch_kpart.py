@@ -50,6 +50,7 @@ from .torch_helpers import (
     assert_results_equal,
     build,
     family_transcripts,
+    image_from_reference,
     write_fastq,
 )
 
@@ -85,12 +86,19 @@ def data():
         codes[j] = t[s0:s0 + L]
         codes[j, 13] = (codes[j, 13] + 1) % 4
         lens[j] = L
-    return image, mk.image_from_reference(image), codes, lens
+    return image, image_from_reference(image), codes, lens
 
 
 def _cfg(shape, **more):
     return dict(k=20, batch_size=B, max_read_len=L, lazy_seeds=False,
-                left_compact=0.0, **SHAPES[shape], **more)
+                **SHAPES[shape], **more)
+
+
+def _ref_config(kw):
+    """The reference's AlignerConfig of the shared fields `kw`, without
+    its left-loop lane compaction: reads beyond that buffer come out -3
+    there and mapped in the port, so the arrays would differ."""
+    return AlignerConfig(**kw, left_compact=0.0)
 
 
 @pytest.mark.parametrize("S", [1, 2, 4, 8])
@@ -131,7 +139,7 @@ def test_build_sharded_graph_matches_reference(data, S):
     global edge ids); each block's flat pool holds the reference block
     pool's bases, base for base over the block's padded span."""
     image, pimage, _, _ = data
-    _, meta = device_index_from_image(image, AlignerConfig(**_cfg("full")))
+    _, meta = device_index_from_image(image, _ref_config(_cfg("full")))
     _, pmeta = mk.device_index_from_image(pimage,
                                           PortConfig(**_cfg("full")))
     assert pmeta.pool_pad == meta.pool_pad
@@ -226,7 +234,7 @@ def test_routed_seed_tables_match_reference(data, S, cap):
         lens = lens.copy()
         codes[-8:] = 1  # poly-C reads: every query of theirs to one owner
         lens[-8:] = L
-    cfg = AlignerConfig(**_cfg("full"))
+    cfg = _ref_config(_cfg("full"))
     _, meta = device_index_from_image(image, cfg)
     lookup, n_levels = ref_build_lookup(image, S)
     if cap is None:
@@ -272,7 +280,7 @@ def test_kpart_matches_reference(data, S, shape, shard_graph):
     image, pimage, codes, lens = data
     kw = _cfg(shape)
     want, want_counts = RefKPart(
-        image, AlignerConfig(**kw), ref_make_mesh(S),
+        image, _ref_config(kw), ref_make_mesh(S),
         shard_graph=shard_graph).map_batch(codes, lens)
     kp = si.KmerPartitionedAligner(pimage, PortConfig(**kw),
                                    make_mesh(S, loopback=True, device="cpu"),
@@ -315,11 +323,11 @@ def test_kpart_graph_sharded_with_empty_shards(shape):
         codes[j, : len(c)] = c
         lens[j] = len(c)
     kw = _cfg(shape)
-    want, want_counts = RefKPart(image, AlignerConfig(**kw),
+    want, want_counts = RefKPart(image, _ref_config(kw),
                                  ref_make_mesh(S),
                                  shard_graph=True).map_batch(codes, lens)
     kp = si.KmerPartitionedAligner(
-        mk.image_from_reference(image), PortConfig(**kw),
+        image_from_reference(image), PortConfig(**kw),
         make_mesh(S, loopback=True, device="cpu"), shard_graph=True)
     assert kp.kmeta.node_block == 1
     assert not kp.graphs[-1].node_rows.any()  # an empty shard
@@ -350,7 +358,7 @@ def _routing_overflow_case(data, shard_graph):
     codes[B // 2:] = 1
     lens[B // 2:] = L
     kw = _cfg("compact")
-    ref = RefKPart(image, AlignerConfig(**kw), ref_make_mesh(8), slack=0.05,
+    ref = RefKPart(image, _ref_config(kw), ref_make_mesh(8), slack=0.05,
                    shard_graph=shard_graph)
     kp = si.KmerPartitionedAligner(
         pimage, PortConfig(**kw), make_mesh(8, loopback=True, device="cpu"),
@@ -387,7 +395,7 @@ def test_kpart_codes_cross_the_link_as_uint8(data, shard_graph):
     image, pimage, codes, lens = data
     kw = _cfg("compact")
     want, want_counts = RefKPart(
-        image, AlignerConfig(**kw), ref_make_mesh(2),
+        image, _ref_config(kw), ref_make_mesh(2),
         shard_graph=shard_graph).map_batch(codes, lens)
     kp = si.KmerPartitionedAligner(pimage, PortConfig(**kw),
                                    make_mesh(2, loopback=True, device="cpu"),
@@ -455,8 +463,8 @@ def _serving_surface_case(data, tmp_path, shard_graph):
             f.write(f"@p{i}\n{bc}{umi}\n+\n{'I' * 28}\n")
     kw = dict(k=20, batch_size=64, max_read_len=64, max_nodes=9,
               distinct_cap=3, max_walk_iters=3, max_left_iters=2,
-              lazy_seeds=False, left_compact=0.0)
-    ref = RefKPart(image, AlignerConfig(**kw), ref_make_mesh(2),
+              lazy_seeds=False)
+    ref = RefKPart(image, _ref_config(kw), ref_make_mesh(2),
                    shard_graph=shard_graph).serving_aligner()
     srv = si.KmerPartitionedAligner(
         pimage, PortConfig(**kw), make_mesh(2, loopback=True, device="cpu"),

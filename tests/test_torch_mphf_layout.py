@@ -33,6 +33,8 @@ from pseudoaligner_torch.parallel import sharded_index as si
 from .torch_helpers import (
     build,
     family_transcripts,
+    from_jax_device_index,
+    image_from_reference,
     make_batch,
     polyt_transcripts,
     port_index,
@@ -87,7 +89,7 @@ def test_upload_pairs_hold_the_image_words(case):
     cfg = AlignerConfig(k=k, max_read_len=L[k], seed_index="mphf",
                         pool_overlap=False)
     dev_np, meta = ref_mk.device_index_from_image(image, cfg)
-    pdev, pmeta = mk.from_jax_device_index(dev_np, meta)
+    pdev, pmeta = from_jax_device_index(dev_np, meta)
     for up in (mk.upload(pdev, "cpu"), mk.upload(pdev, "cpu",
                                                  serving=pmeta)):
         pairs = up.mphf_pairs
@@ -120,7 +122,7 @@ def test_shard_upload_layouts_hold_the_lookup(case, S):
     values (zero padding after them), and the bytes of the separate
     arrays at W = 2 (a record is 16 bytes); 32-byte records at k = 64."""
     k, image, _ = case
-    pimage = mk.image_from_reference(image)
+    pimage = image_from_reference(image)
     lookup, _n_levels = si.build_sharded_lookup(pimage, S)
     W = image.kmer_keys.shape[1]
     rw = mk.record_words(W)

@@ -23,6 +23,7 @@ from .torch_helpers import (
     _fuzz_reads,
     build,
     family_transcripts,
+    image_from_reference,
     polyt_transcripts,
     write_fastq,
 )
@@ -49,7 +50,7 @@ def _indexes(image, k):
         image, AlignerConfig(k=k, max_read_len=L, pool_overlap=False,
                              **SERVING))
     dev, meta = mk.device_index_from_image(
-        mk.image_from_reference(image),
+        image_from_reference(image),
         PortConfig(k=k, max_read_len=L, **SERVING))
     return ref_dev, ref_meta, dev, meta
 
@@ -119,7 +120,7 @@ def test_upload_gate(images, monkeypatch):
     mk.upload(dev, "cpu", serving=meta, pack=False)
     assert len(calls) == 1
     b1_dev, b1_meta = mk.device_index_from_image(
-        mk.image_from_reference(images[20][0]),
+        image_from_reference(images[20][0]),
         PortConfig(k=20, max_read_len=72, seed_index="bucket1", **SERVING))
     mk.upload(b1_dev, "cpu", serving=b1_meta)
     assert len(calls) == 1

@@ -45,6 +45,7 @@ from .torch_helpers import (
     assert_results_equal,
     build,
     family_transcripts,
+    image_from_reference,
     port_index,
     write_fastq,
 )
@@ -74,7 +75,7 @@ def data(tmp_path_factory):
     write_fastq(fq, _fuzz_reads(rng, seqs, k=20, n=128, L=60))
     idx = str(d / "index.bin")
     save_index(image, idx)
-    return image, mk.image_from_reference(image), codes, lens, fq, idx
+    return image, image_from_reference(image), codes, lens, fq, idx
 
 
 @pytest.mark.parametrize("L_,dtype,hi", [

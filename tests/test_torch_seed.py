@@ -65,6 +65,31 @@ def test_seed_tables_match_reference(case, lazy):
     assert np.array_equal(got.numpy(), ref)
 
 
+def test_lazy_meta_refuses_an_eager_table(case):
+    """An expected difference (ROADMAP, C.1): under a lazy-seed meta the
+    reference's map_batch_with_seeds walks a [B, P, 3] table, and the
+    port's walk takes only its [B, ceil(P/3), 3] one and refuses it."""
+    k, _, image, reads = case
+    L = K_L[k]
+    P = L - k + 1
+    cfg = AlignerConfig(k=k, max_read_len=L, lazy_seeds=True,
+                        pool_overlap=False)
+    dev_np, meta = ref_mk.device_index_from_image(image, cfg)
+    codes, lens = make_batch(reads, 64, L)
+    reads_j = jnp.asarray(codes.astype(np.int32))
+    nh3 = ref_mk._seed_tables(meta, dev_np, reads_j, jnp.asarray(lens))[0]
+    assert nh3.shape == (64, P, 3)
+    ref = ref_mk.map_batch_with_seeds(meta, dev_np, reads_j,
+                                      jnp.asarray(lens), nh3)
+    assert np.asarray(ref.mapped).any()
+    idx, pmeta = port_index(dev_np, meta)
+    assert pmeta.lazy_seeds and pmeta.nh3_rows == (P + 2) // 3
+    with pytest.raises(ValueError, match="nh3"):
+        mk.map_batch_with_seeds(
+            pmeta, idx, torch.from_numpy(codes.astype(np.int32)),
+            torch.from_numpy(lens), torch.from_numpy(np.array(nh3)))
+
+
 def _snp_reads(rng, seqs, L, n):
     """Windows of L bases with one to three substitutions each."""
     reads = []

@@ -29,6 +29,7 @@ from .torch_helpers import (
     assert_results_equal,
     build,
     family_transcripts,
+    from_jax_device_index,
     make_batch,
     polyt_transcripts,
     port_index,
@@ -148,7 +149,7 @@ def test_mphf_probe_slots_match_reference(case):
     assert ((h & 31) == 31).any()
 
 
-# the CLI's serving shape (cli._serving_config at L) and the uncapped
+# the CLI's serving shape (cli.serving_config at L) and the uncapped
 # full-output shape of the exact re-map
 MAP_CONFIGS = {
     "serving": {20: SERVING, 64: dict(SERVING, max_walk_iters=4,
@@ -190,7 +191,7 @@ def test_map_batch_packed_own_index_matches_reference(case):
                   "kmer_offset"):
             a, b = np.asarray(getattr(ref_dev, f)), getattr(dev, f)
             assert a.dtype == b.dtype and np.array_equal(a, b), (mode, f)
-        pm = mk.from_jax_device_index(ref_dev, ref_meta)[1]
+        pm = from_jax_device_index(ref_dev, ref_meta)[1]
         assert meta == pm, mode
 
 

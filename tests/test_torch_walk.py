@@ -29,7 +29,7 @@ from .torch_helpers import (
 SERVING = dict(distinct_cap=3, max_walk_iters=3, max_left_iters=2,
                max_nodes=7)
 CONFIGS = {
-    # the CLI's serving shape at L = 64 (cli._serving_config)
+    # the CLI's serving shape at L = 64 (cli.serving_config)
     "serving": (20, 64, SERVING),
     "serving_L128": (20, 128, dict(SERVING, max_walk_iters=6, max_nodes=10)),
     "overflow_dc2": (20, 64, dict(distinct_cap=2, max_walk_iters=0,

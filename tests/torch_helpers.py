@@ -1,16 +1,29 @@
 """Shared data and comparison helpers of the PyTorch-port parity tests
 (tests/test_torch_*.py): numpy-seeded synthetic transcriptomes and reads
-fed to both the JAX reference and the port."""
+fed to both the JAX reference and the port, and the bridges that carry
+the reference's index objects across to the port's."""
+
+from dataclasses import fields
 
 import numpy as np
 import torch
 
+from pseudoaligner_torch.index.image import IndexImage
+from pseudoaligner_torch.index.mphf import Mphf
+from pseudoaligner_torch.ops.map_kernel import (
+    SEED_INDEXES,
+    DeviceIndex,
+    MapMeta,
+    upload,
+)
+from pseudoaligner_torch.ops.mphf_lookup import MphfMeta
 from pseudoaligner_tpu.index.builder import build_index
 
 from .test_fuzz_parity import _fuzz_reads, _random_transcripts
 
 __all__ = ["_fuzz_reads", "_random_transcripts", "family_transcripts",
-           "polyt_transcripts", "make_batch", "port_index",
+           "polyt_transcripts", "make_batch", "from_jax_device_index",
+           "image_from_reference", "port_index",
            "assert_results_equal", "write_fastq"]
 
 
@@ -58,13 +71,36 @@ def make_batch(reads, B, L):
     return codes, lens
 
 
+def from_jax_device_index(dev_np, meta) -> tuple[DeviceIndex, MapMeta]:
+    """The reference's numpy DeviceIndex and MapMeta -> the port's, so
+    both engines compute on the same arrays.  Reads them duck-typed, as
+    plain attributes.  Takes every seed index and the bitset fields
+    (tx_words, ec_bits), but needs the non-overlapping pool
+    (pool_stride = 0)."""
+    if meta.seed_index not in SEED_INDEXES or meta.pool_stride != 0:
+        raise ValueError(f"need a seed_index of {SEED_INDEXES} and "
+                         f"pool_stride=0, got {meta.seed_index!r}, "
+                         f"{meta.pool_stride}")
+    dev = DeviceIndex(**{f.name: np.asarray(getattr(dev_np, f.name))
+                         for f in fields(DeviceIndex)})
+    kw = {f.name: getattr(meta, f.name) for f in fields(MapMeta)}
+    kw["mphf"] = MphfMeta.of(meta.mphf)
+    return dev, MapMeta(**kw)
+
+
+def image_from_reference(image) -> IndexImage:
+    """The reference's IndexImage -> the port's, reading its arrays as
+    plain attributes (the arrays are shared, not copied)."""
+    m = image.mphf
+    mphf = Mphf(**{f: getattr(m, f) for f in (
+        "n_keys", "seeds", "masks", "word_offsets", "key_offsets", "bits",
+        "ranks")})
+    kw = {f.name: getattr(image, f.name) for f in fields(IndexImage)}
+    return IndexImage(**dict(kw, mphf=mphf))
+
+
 def port_index(dev_np, meta):
     """The reference's numpy DeviceIndex/MapMeta -> the port's, on CPU."""
-    from pseudoaligner_torch.ops.map_kernel import (
-        from_jax_device_index,
-        upload,
-    )
-
     pdev, pmeta = from_jax_device_index(dev_np, meta)
     return upload(pdev, "cpu"), pmeta
 
