@@ -21,7 +21,12 @@ Phases (every number printed is for the card named on the first line):
 3. cuckoo seed index: holds the seed kernel (K1) and the walk kernel (K2)
    equal, tolerance 0, to their plain PyTorch versions on the card, on
    every batch in the serving shape and on the first in the uncapped
-   full-output (exact re-map) shape, and times both by two methods, held
+   full-output (exact re-map) shape: K1's table form against the plain
+   table; its step form (first-hit seeding, what the map step launches)
+   on row 0 of every read and every row of the reads whose first hit lies
+   past position 0; K2 on either form against the plain walk.  It times
+   the step's K1 and K2 (the step form, with a bound for the probes and
+   rows that form issues) by two methods, held
    (CUDA events around each call with the device held busy while the
    host prepares it: every timed row has it, and the kernels line's `ms`
    is it) and traced (torch.profiler device time, with the launches the
@@ -36,9 +41,9 @@ Phases (every number printed is for the card named on the first line):
 5. bucket1 and MPHF seed indexes on the same index image: device bytes
    (each upload's bytes are its arrays' bytes), the MPHF's slot-record
    bytes (`pa.serve_init.mphf_record_bytes`) and serve-init time; K1
-   under each and K2 in the bucket1 serving shape (lazy seeds) on 4
-   batches spread over the file, K2 in the MPHF uncapped full-output shape
-   on the middle one, and the stats kernel (K3) against
+   (both forms, as in phase 3) under each and K2 (on each form) in the
+   serving shape on 4 batches spread over the file, K2 in the uncapped
+   full-output shape on the middle one, and the stats kernel (K3) against
    `batch_stats`' plain version on the last one (its reversed reads give
    MPHF false positives), all tolerance 0 and timed as in phase 3; the
    serving loop of phase 4 once per index;
@@ -455,6 +460,32 @@ def compare_results(kernel, plain, what: str) -> int:
     return worst
 
 
+def check_step_form(meta, idx, packed, lens, nh3_p, metas, what: str):
+    """K1's step form (first-hit seeding, the map step's launch) against
+    the plain whole table nh3_p, tolerance 0: row 0 of every read and every
+    row of the reads whose first hit lies past position 0, the rows K2
+    reads; then K2 on the step form against the plain walk on nh3_p in each
+    of `metas`' shapes.  Returns the step-form table."""
+    from pseudoaligner_torch.ops import kernels
+    from pseudoaligner_torch.ops.map_kernel import walk
+
+    step = kernels.seed_tables_cuda(meta, idx, packed, lens, first_hit=True)
+    q0 = nh3_p[:, 0, 0]
+    later = (q0 > 0) & (q0 < meta.n_positions)
+    d = max(max_abs_diff(step[:, 0], nh3_p[:, 0]),
+            max_abs_diff(step[later], nh3_p[later]))
+    if d:
+        raise AssertionError(f"{what}: seed kernel's step form differs by "
+                             f"up to {d}")
+    for m in metas:
+        compare_results(
+            kernels.walk_cuda(m, idx, packed, lens, step, first_hit=True),
+            walk(m, idx, packed, lens, nh3_p),
+            f"{what}: walk kernel on the step form (distinct_cap "
+            f"{m.distinct_cap})")
+    return step
+
+
 # ---------------------------------------------------------------------------
 # work counts for the bounds: what this run's data needs each function to
 # read and compute (a probe that hits in the first cuckoo bucket never reads
@@ -462,8 +493,10 @@ def compare_results(kernel, plain, what: str) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _probed_words(meta, packed, lens, eager: bool):
-    """[n, W] k-mer words of the positions K1 (or K3 when eager) probes."""
+def _probed_words(meta, packed, lens, eager: bool, first=None):
+    """[n, W] k-mer words of the positions K1 (or K3 when eager) probes;
+    with `first`, [B] bool of the reads whose position 0 hits, those of
+    K1's step form, which probes such a read at position 0 alone."""
     import torch
 
     from pseudoaligner_torch.ops.kmers import all_kmers
@@ -474,6 +507,8 @@ def _probed_words(meta, packed, lens, eager: bool):
     valid = pos[None, :] <= lens.to(torch.int64)[:, None] - meta.k
     if meta.lazy_seeds and not eager:
         valid &= pos[None, :] % 3 == 0
+    if first is not None:
+        valid &= ~first[:, None] | (pos[None, :] == 0)
     return kmers[valid]
 
 
@@ -544,12 +579,25 @@ def bound(works) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def seed_work(meta, idx, packed, lens):
-    """K1: packed reads and lens in, nh3 out, plus the probes' reads."""
-    B, P, k = packed.shape[0], meta.n_positions, meta.k
-    pb, po = _probe_work(meta, idx, _probed_words(meta, packed, lens, False))
-    nbytes = packed.numel() * 4 + B * 4 + B * meta.nh3_rows * 12 + pb
-    return nbytes, po + 3 * k * B * P
+def seed_work(meta, idx, packed, lens, nh3=None):
+    """K1: packed reads and lens in, nh3 out, plus the probes' reads.  The
+    table form: every probed position and row.  With nh3, the batch's plain
+    whole table, the step form (first-hit seeding): position 0 of every
+    read, the other probed positions of the reads that miss there, row 0
+    of every read and every row of the reads whose first hit lies past 0."""
+    B, P, k, G = packed.shape[0], meta.n_positions, meta.k, meta.nh3_rows
+    if nh3 is None:
+        first, rows, cut = None, B * G, B * P
+    else:
+        q0 = nh3[:, 0, 0]
+        first = q0 == 0
+        rows = B + int(((q0 > 0) & (q0 < P)).sum()) * (G - 1)
+    words = _probed_words(meta, packed, lens, False, first)
+    if nh3 is not None:
+        cut = words.shape[0]
+    pb, po = _probe_work(meta, idx, words)
+    nbytes = packed.numel() * 4 + B * 4 + rows * 12 + pb
+    return nbytes, po + 3 * k * cut
 
 
 def walk_work(packed, res):
@@ -1018,8 +1066,10 @@ def main(argv=None) -> int:
     meta, idx = al.meta, al.dev
     # every batch in the serving shape, the first also in the uncapped
     # full-output shape of the exact re-map
+    # K1's table form and its step form, K2 on each
     err = {"seed": 0, "walk": 0}
-    nh3 = []
+    meta_full = full_shape(meta)
+    nh3, step = [], []
     for b, pk in enumerate(packed):
         nh3.append(kernels.seed_tables_cuda(meta, idx, pk, lens))
         nh3_p = seed_tables(meta, idx, pk, lens)
@@ -1030,15 +1080,18 @@ def main(argv=None) -> int:
         err["walk"] = max(err["walk"], compare_results(
             kernels.walk_cuda(meta, idx, pk, lens, nh3[b]),
             walk(meta, idx, pk, lens, nh3_p), f"walk kernel, batch {b}"))
-    meta_full = full_shape(meta)
+        step.append(check_step_form(
+            meta, idx, pk, lens, nh3_p, (meta, meta_full) if b == 0
+            else (meta,), f"[cuckoo] batch {b}"))
     full_k = kernels.walk_cuda(meta_full, idx, packed[0], lens, nh3[0])
     err["walk_full"] = compare_results(
         full_k, walk(meta_full, idx, packed[0], lens, nh3[0]),
         "walk kernel (full output)")
     torch.cuda.synchronize()
-    say(f"[cuckoo] kernel == plain, tolerance 0: seed and walk (serving "
-        f"shape) on all {n_b} batches of {BATCH} reads; walk full output "
-        f"(nodes {tuple(full_k.nodes.shape)}) on batch 0")
+    say(f"[cuckoo] kernel == plain, tolerance 0: seed (table and step "
+        f"forms) and walk (on each form, serving shape) on all {n_b} "
+        f"batches of {BATCH} reads; walk full output (nodes "
+        f"{tuple(full_k.nodes.shape)}, on each form) on batch 0")
     # the tensor entry on int32 codes: K6's int32 entry packs them on the
     # card, then K1 and K2 as on the host-packed batches
     kernels.reset_launch_counts()
@@ -1057,8 +1110,10 @@ def main(argv=None) -> int:
         f"map_batch_packed on the host-packed batches, every MapResult "
         f"field; launches {tensor_launches}")
     # the bounds of the work the timed calls below do, batch by batch
+    # (the timed K1 and K2 are the step's: K1's step form, K2 on it)
     bounds = {
-        "seed": bound([seed_work(meta, idx, pk, lens) for pk in packed]),
+        "seed": bound([seed_work(meta, idx, pk, lens, nh3[b])
+                       for b, pk in enumerate(packed)]),
         "walk": bound([walk_work(pk, kernels.walk_cuda(
             meta, idx, pk, lens, nh3[b])) for b, pk in enumerate(packed)]),
         "walk_full": bound([walk_work(pk, kernels.walk_cuda(
@@ -1070,22 +1125,25 @@ def main(argv=None) -> int:
     # (name, call, reps, kernel symbol): each kernel against its plain
     # version, both in the serving shape and in the full-output shape
     timed = [
-        ("seed", lambda b: kernels.seed_tables_cuda(meta, idx, packed[b], lens),
+        ("seed", lambda b: kernels.seed_tables_cuda(meta, idx, packed[b], lens,
+                                                    first_hit=True),
          n_b, "seed_kernel"),
         ("seed_plain", lambda b: seed_tables(meta, idx, packed[b], lens),
          4, None),
         ("walk", lambda b: kernels.walk_cuda(meta, idx, packed[b], lens,
-                                             nh3[b]), n_b, "walk_kernel"),
+                                             step[b], first_hit=True),
+         n_b, "walk_kernel"),
         ("walk_plain", lambda b: walk(meta, idx, packed[b], lens, nh3[b]),
          4, None),
         ("walk_full", lambda b: kernels.walk_cuda(
-            meta_full, idx, packed[b], lens, nh3[b]), n_b, "walk_kernel"),
+            meta_full, idx, packed[b], lens, step[b], first_hit=True), n_b,
+         "walk_kernel"),
         ("walk_full_plain", lambda b: walk(
             meta_full, idx, packed[b], lens, nh3[b]), 2, None),
     ]
     for name, f, reps, sym in timed:
         time_pair(name, f, reps, sym)
-    del nh3, full_k
+    del nh3, step, full_k
 
     # ---- 4. cuckoo: device step alone, then the serving loop ----
     serving_report(al, "cuckoo")
@@ -1101,7 +1159,7 @@ def main(argv=None) -> int:
         meta, idx = al.meta, al.dev
         sk, wk = f"seed_{mode}", f"walk_{mode}"
         err[sk] = err[wk] = 0
-        nh3 = {}
+        nh3, step = {}, {}
         for b in sel:
             nh3[b] = kernels.seed_tables_cuda(meta, idx, packed[b], lens)
             nh3_p = seed_tables(meta, idx, packed[b], lens)
@@ -1114,10 +1172,18 @@ def main(argv=None) -> int:
                     kernels.walk_cuda(meta, idx, packed[b], lens, nh3[b]),
                     walk(meta, idx, packed[b], lens, nh3_p),
                     f"{mode} walk kernel, batch {b}"))
-        bounds[sk] = bound([seed_work(meta, idx, packed[b], lens)
+            step[b] = check_step_form(
+                meta, idx, packed[b], lens, nh3_p,
+                (meta,) + ((full_shape(meta),) if b == mid else ()),
+                f"[{mode}] batch {b}")
+        say(f"[{mode}] seed kernel's step form == plain on the rows the "
+            f"walk reads, and the walk on it == plain (serving shape; full "
+            f"output on batch {mid}), tolerance 0, batches {sel}")
+        bounds[sk] = bound([seed_work(meta, idx, packed[b], lens, nh3[b])
                             for b in sel])
         time_pair(sk, lambda i: kernels.seed_tables_cuda(
-            meta, idx, packed[sel[i]], lens), n_b, "seed_kernel", len(sel))
+            meta, idx, packed[sel[i]], lens, first_hit=True), n_b,
+            "seed_kernel", len(sel))
         time_pair(f"{sk}_plain", lambda i: seed_tables(
             meta, idx, packed[sel[i]], lens), 2, None, len(sel))
         if mode == "bucket1":
@@ -1136,8 +1202,8 @@ def main(argv=None) -> int:
         bounds[wk] = bound([walk_work(packed[b], kernels.walk_cuda(
             wmeta, idx, packed[b], lens, nh3[b])) for b in wsel])
         time_pair(wk, lambda i: kernels.walk_cuda(
-            wmeta, idx, packed[wsel[i]], lens, nh3[wsel[i]]), n_b,
-            "walk_kernel", len(wsel))
+            wmeta, idx, packed[wsel[i]], lens, step[wsel[i]],
+            first_hit=True), n_b, "walk_kernel", len(wsel))
         time_pair(f"{wk}_plain", lambda i: walk(
             wmeta, idx, packed[wsel[i]], lens, nh3[wsel[i]]), 2, None,
             len(wsel))
@@ -1161,7 +1227,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         say(f"[{mode}] kernel == plain, tolerance 0: seed on batches {sel}; "
             f"walk, {what}")
-        del nh3
+        del nh3, step
         serving_report(al, mode)
         al.close()
         del al, idx
@@ -1408,9 +1474,10 @@ def main(argv=None) -> int:
         for b in range(MODE_BATCHES)]
     walks = []
     err["ec_bits"] = 0
-    for pk in packed12:
-        nh3 = kernels.seed_tables_cuda(meta12, idx12, pk, lens)
-        w = kernels.walk_cuda(meta12, idx12, pk, lens, nh3)
+    for pk in packed12:  # K1 and K2 as the step runs them
+        nh3 = kernels.seed_tables_cuda(meta12, idx12, pk, lens,
+                                       first_hit=True)
+        w = kernels.walk_cuda(meta12, idx12, pk, lens, nh3, first_hit=True)
         err["ec_bits"] = max(err["ec_bits"], max_abs_diff(
             kernels.ec_bits_cuda(meta12, idx12, w.nodes, w.n_nodes,
                                  w.mapped),

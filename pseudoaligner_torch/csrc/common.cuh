@@ -72,6 +72,9 @@ struct Params {
   uint32_t bucket_seed;
   int n_levels;
   float left_frac;
+  // nh3 is K1's step form (seed.cu), set by the seed and walk entries from
+  // their call path, not from the parameter array
+  int first_hit;
 };
 
 // The MPHF's per-level metadata, passed to the kernels by value (768 B of
@@ -107,6 +110,7 @@ inline Params params_from(const int64_t* v, float left_frac) {
   p.bucket_seed = (uint32_t)v[16];
   p.n_levels = v[17] < MAX_LEVELS ? (int)v[17] : MAX_LEVELS;
   p.left_frac = left_frac;
+  p.first_hit = 0;
   return p;
 }
 

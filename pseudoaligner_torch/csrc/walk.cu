@@ -18,6 +18,15 @@
 //     read nh3's row kpos / 3 (the table holds the residue-0 grid alone;
 //     row kpos under eager seeds), off-grid positions probe the seed index
 //     in place (common.cuh seed_probe) and step by 3 on a miss;
+//   - on K1's step form of the table (seed.cu, first-hit seeding; the
+//     entry sets Params::first_hit from its call path), a read whose first
+//     hit is position 0 has row 0 alone: each of its re-seeds
+//     that would read a row probes kpos, kpos + 3, ... up to len - k in
+//     place, within the same iteration, and takes the first hit, which is
+//     the row's content, so iteration counts and outputs are unchanged.
+//     Such reads seldom re-seed (more than the mismatch budget inside one
+//     segment, or an error on a branch base); the probes are counted
+//     (warp-aggregated) into pa.walk.inplace_probes;
 //   - output: compact run-length EC ids in distinct_cap slots (-2 on
 //     overflow, -3 when capped, int16/uint8 narrowing), or the full node
 //     list when distinct_cap == 0.
@@ -67,7 +76,8 @@ __global__ void walk_kernel(pa::Params p,
                             const int32_t* __restrict__ nh3,
                             const uint32_t* __restrict__ pool,
                             const int32_t* __restrict__ node_row, pa::Index ix,
-                            pa::WalkOut o) {
+                            pa::WalkOut o,
+                            unsigned long long* __restrict__ inplace) {
   extern __shared__ int4 smem4[];
   const int T = blockDim.x, t = threadIdx.x;
   const int nw = p.nw;
@@ -96,6 +106,9 @@ __global__ void walk_kernel(pa::Params p,
 
   const int q0 = tbl[0], node0 = tbl[1], off0 = tbl[2];
   const bool seeded = q0 < P;
+  // K1's step form wrote row 0 alone for a read whose first hit is 0
+  const bool rowless = p.first_hit && q0 == 0;
+  int n_inplace = 0;
   bool capped = false;
 
   // ---- left extension (src/pseudoaligner.rs:124-205) ----
@@ -182,6 +195,23 @@ __global__ void walk_kernel(pa::Params p,
         active = false;
       } else if (p.lazy && kpos % 3 != 0) {
         seeking = true;
+      } else if (rowless) {
+        // the row's next hit on kpos's grid, probed here
+        int q = kpos, pn = -1, po = -1;
+        for (; q <= len - k; q += 3) {
+          uint32_t w[W];
+          pa::kmer_words<W>(rd, q, k, w);
+          pa::seed_probe<W>(p, lv, ix, w, &pn, &po);
+          n_inplace++;
+          if (pn >= 0) break;
+        }
+        if (pn >= 0) {
+          kpos = q;
+          node = pn;
+          koff = po;
+        } else {
+          active = false;
+        }
       } else {
         const int32_t* row = tbl + (size_t)(p.lazy ? kpos / 3 : kpos) * 3;
         if (row[0] < P) {
@@ -199,6 +229,12 @@ __global__ void walk_kernel(pa::Params p,
 
   // ---- output ----
   pa::encode_output(p, b, out, cov, mm, capped, o);
+  if (p.first_hit && inplace != nullptr) {
+    const unsigned lanes = __activemask();
+    const int n = __reduce_add_sync(lanes, n_inplace);
+    if (n > 0 && (t & 31) == __ffs(lanes) - 1)
+      atomicAdd(inplace, (unsigned long long)n);
+  }
 }
 
 template <int W>
@@ -206,28 +242,33 @@ cudaError_t launch_walk(const pa::Params& p, const pa::Levels& lv,
                         const uint32_t* packed, const int32_t* lens,
                         const int32_t* nh3, const uint32_t* pool,
                         const int32_t* node_row, const pa::Index& ix,
-                        const pa::WalkOut& o, cudaStream_t stream) {
+                        const pa::WalkOut& o, unsigned long long* inplace,
+                        cudaStream_t stream) {
   const size_t smem = (size_t)4 * THREADS * (p.nw + 2 + p.dc);
   cudaError_t e = pa::allow_smem(walk_kernel<W>, smem);
   if (e != cudaSuccess) return e;
   const int blocks = (p.B + THREADS - 1) / THREADS;
-  walk_kernel<W><<<blocks, THREADS, smem, stream>>>(p, lv, packed, lens, nh3,
-                                                     pool, node_row, ix, o);
+  walk_kernel<W><<<blocks, THREADS, smem, stream>>>(
+      p, lv, packed, lens, nh3, pool, node_row, ix, o, inplace);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// first_hit: 0 when nh3 is a whole table, 1 for K1's step form; inplace:
+// null, or the int64 counter the in-place re-seed probes are added to.
 extern "C" int pa_walk(const int64_t* params, const int64_t* index,
                        float left_frac, int device, const uint32_t* packed,
                        const int32_t* lens, const int32_t* nh3,
                        const uint32_t* pool, const int32_t* node_row,
                        uint8_t* mapped, void* coverage, int32_t* mismatches,
                        int32_t* n_nodes, void* ec_distinct, int32_t* nodes,
+                       int first_hit, unsigned long long* inplace,
                        void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   pa::Params p = pa::params_from(params, left_frac);
+  p.first_hit = first_hit;
   if (p.B == 0) return 0;
   const pa::Levels lv = pa::levels_from(params);
   const pa::Index ix = pa::index_from(index);
@@ -236,6 +277,6 @@ extern "C" int pa_walk(const int64_t* params, const int64_t* index,
   cudaStream_t st = (cudaStream_t)stream;
   return (int)pa::with_w(p.W, [&](auto w) {
     return launch_walk<decltype(w)::value>(p, lv, packed, lens, nh3, pool,
-                                           node_row, ix, o, st);
+                                           node_row, ix, o, inplace, st);
   });
 }

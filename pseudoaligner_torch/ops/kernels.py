@@ -130,9 +130,11 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             lib.pa_seed_tables.restype = _I
-            lib.pa_seed_tables.argtypes = [_P, _P, _I, _P, _P, _P, _P]
+            lib.pa_seed_tables.argtypes = [_P, _P, _I, _P, _P, _P, _I, _P,
+                                           _P]
             lib.pa_walk.restype = _I
-            lib.pa_walk.argtypes = [_P, _P, ctypes.c_float, _I] + [_P] * 12
+            lib.pa_walk.argtypes = ([_P, _P, ctypes.c_float, _I] + [_P] * 11
+                                    + [_I, _P, _P])
             lib.pa_stats.restype = _I
             lib.pa_stats.argtypes = [_P, _P, _I, _P, _P, _P, _P]
             lib.pa_ec_bits.restype = _I
@@ -307,17 +309,31 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _counter(name: str, dev, on: bool):
+    """The device counter `name` (spans.device_counter) when `on`, else a
+    null pointer."""
+    return spans.device_counter(name, dev).data_ptr() if on else None
+
+
 def seed_tables_cuda(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
-                     lens: torch.Tensor) -> torch.Tensor:
+                     lens: torch.Tensor, first_hit: bool = False
+                     ) -> torch.Tensor:
     """K1: packed [B, ceil(L/16)] int32 reads, lens [B] int32 ->
-    nh3 [B, meta.nh3_rows, 3] int32 (see csrc/seed.cu)."""
+    nh3 [B, meta.nh3_rows, 3] int32 (see csrc/seed.cu).
+
+    The whole table, map_kernel.seed_tables' result; or with first_hit,
+    the step's form: a read whose position 0 hits gets row 0 alone, a read
+    with no hit on row 0's grid row 0 alone, and every other read its whole
+    rows, for walk_cuda(..., first_hit=True).  The step form adds the
+    probes it issues to the device counter pa.seed.probes."""
     B, dev = _check_inputs(meta, idx, packed, lens)
     lib = _load()
     nh3 = torch.empty((B, meta.nh3_rows, 3), dtype=torch.int32, device=dev)
     params, ptrs = _params(meta, B), _index_ptrs(idx)
     rc = lib.pa_seed_tables(
         params.data_ptr(), ptrs.data_ptr(), dev.index, packed.data_ptr(),
-        lens.data_ptr(), nh3.data_ptr(), _stream(dev))
+        lens.data_ptr(), nh3.data_ptr(), int(first_hit),
+        _counter("pa.seed.probes", dev, first_hit), _stream(dev))
     _raise_on(lib, rc, "seed kernel")
     seed_tables_cuda.launches += 1
     return nh3
@@ -327,15 +343,21 @@ seed_tables_cuda.launches = 0
 
 
 def walk_cuda(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
-              lens: torch.Tensor, nh3: torch.Tensor) -> MapResult:
-    """K2: the walk and output encoding -> MapResult (see csrc/walk.cu)."""
+              lens: torch.Tensor, nh3: torch.Tensor,
+              first_hit: bool = False) -> MapResult:
+    """K2: the walk and output encoding -> MapResult (see csrc/walk.cu).
+    With first_hit, nh3 is seed_tables_cuda's step form: the re-seeds of a
+    read whose first hit is position 0 probe in place, counted into the
+    device counter pa.walk.inplace_probes."""
     DC, M = meta.distinct_cap, meta.max_nodes
     if DC > MAX_DISTINCT_CAP or M < 1:
         raise ValueError(f"distinct_cap {DC} > {MAX_DISTINCT_CAP} or "
                          f"max_nodes {M} < 1")
-    # the walk probes only in lazy seeks: without them it reads no seed
-    # index (the k-mer-partitioned graph carries a placeholder one)
-    B, dev = _check_inputs(meta, idx, packed, lens, probes=meta.lazy_seeds)
+    # the walk probes only in lazy seeks and on a step-form table: without
+    # them it reads no seed index (the k-mer-partitioned graph carries a
+    # placeholder one)
+    B, dev = _check_inputs(meta, idx, packed, lens,
+                           probes=meta.lazy_seeds or first_hit)
     _check("nh3", nh3, torch.int32, (B, meta.nh3_rows, 3), dev)
     lib = _load()
     mapped = torch.empty(B, dtype=torch.bool, device=dev)
@@ -359,7 +381,8 @@ def walk_cuda(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
         dev.index, packed.data_ptr(), lens.data_ptr(), nh3.data_ptr(),
         idx.pool_rows.data_ptr(), idx.node_row.data_ptr(), mapped.data_ptr(),
         coverage.data_ptr(), mismatches.data_ptr(), n_nodes.data_ptr(),
-        ec_distinct.data_ptr(), nodes.data_ptr(), _stream(dev))
+        ec_distinct.data_ptr(), nodes.data_ptr(), int(first_hit),
+        _counter("pa.walk.inplace_probes", dev, first_hit), _stream(dev))
     _raise_on(lib, rc, "walk kernel")
     walk_cuda.launches += 1
     return MapResult(

@@ -28,7 +28,11 @@ The seed index (`MapMeta.seed_index`, `seed_probe`) is one of:
 
 `map_batch_packed` runs the CUDA kernels (ops/kernels.py, csrc/seed.cu,
 csrc/walk.cu and csrc/ecbits.cu) for CUDA tensors and the plain PyTorch
-passes below for CPU tensors.  `map_batch` and `map_batch_with_seeds`
+passes below for CPU tensors.  On the card the seed kernel builds the
+table in its step form: a read whose position 0 hits is probed no
+further and keeps row 0 alone, and the walk kernel resolves that read's
+re-seeds in place; the outputs are those of the whole table.
+`map_batch` and `map_batch_with_seeds`
 take unpacked base codes and pack them on the device first
 (`pack_reads_device`, csrc/pack.cu on a GPU); the second walks from a given
 next-hit table, as the k-mer-partitioned step (parallel/sharded_index.py)
@@ -1105,26 +1109,32 @@ def map_batch_packed(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
 
 def _map_packed(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
                 lens: torch.Tensor) -> MapResult:
+    """The step: on a GPU K1 in its step form (first-hit seeding: a read
+    whose position 0 hits is probed no further) and K2 on that table."""
     if packed.is_cuda:
         from .kernels import seed_tables_cuda
 
-        nh3 = seed_tables_cuda(meta, idx, packed, lens)
+        nh3 = seed_tables_cuda(meta, idx, packed, lens, first_hit=True)
     else:
         nh3 = seed_tables(meta, idx, packed, lens)
     spans.count("pa.seed.nh3_bytes", nh3.numel() * nh3.element_size())
     spans.count("pa.seed.tables")
-    return walk_from_seeds(meta, idx, packed, lens, nh3)
+    spans.count("pa.seed.reads", packed.shape[0])
+    return walk_from_seeds(meta, idx, packed, lens, nh3,
+                           first_hit=packed.is_cuda)
 
 
 def walk_from_seeds(meta: MapMeta, idx: DeviceIndex, packed: torch.Tensor,
-                    lens: torch.Tensor, nh3: torch.Tensor) -> MapResult:
+                    lens: torch.Tensor, nh3: torch.Tensor,
+                    first_hit: bool = False) -> MapResult:
     """The walk and, in the full-output shape with meta.tx_words > 0, the
     bitset EC intersection, from a next-hit table: K2 and K4 for CUDA
-    tensors, the plain passes for CPU tensors."""
+    tensors, the plain passes for CPU tensors.  first_hit: nh3 is K1's
+    step form (CUDA tensors only)."""
     if packed.is_cuda:
         from .kernels import ec_bits_cuda, walk_cuda
 
-        res = walk_cuda(meta, idx, packed, lens, nh3)
+        res = walk_cuda(meta, idx, packed, lens, nh3, first_hit=first_hit)
         intersect = ec_bits_cuda
     else:
         res = walk(meta, idx, packed, lens, nh3)

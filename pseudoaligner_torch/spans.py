@@ -7,6 +7,7 @@
     with spans.device_span("pa.serve_init.unpack", device):
         launch(...)                           # timed on the card
     spans.count("pa.pinned_bytes", t.nbytes)
+    launch(..., spans.device_counter("pa.seed.probes", device))
     spans.snapshot()  # {"spans": {name: {"count", "total_s", "self_s"}},
                       #  "counters": {name: n}, "records": [...]}
     spans.reset()
@@ -27,7 +28,10 @@ profiler running that costs one flag check.
 
 A device span records two CUDA events around work enqueued on a CUDA
 device's current stream; `snapshot()` reads their elapsed time, so the
-span adds no synchronise.
+span adds no synchronise.  A device counter is an int64 [1] tensor on a
+device that kernels add to; `snapshot()` reads it into the counter of its
+name after synchronising its device, so the kernels that count add no
+synchronise either.
 
 Names start with "pa.".
 """
@@ -48,6 +52,7 @@ _stats: dict[str, list[int]] = {}  # name -> [count, total ns, self ns]
 _counters: dict[str, int] = {}
 _records: deque = deque(maxlen=RING)  # (name, start ns, end ns, parent)
 _pending: list = []  # (name, start event, end event) of device spans
+_device_counters: dict = {}  # (name, torch.device) -> int64 [1] tensor
 _local = threading.local()
 
 
@@ -132,33 +137,67 @@ def count(name: str, n: int = 1) -> None:
         _counters[name] = _counters.get(name, 0) + int(n)
 
 
+def device_counter(name: str, device) -> torch.Tensor:
+    """The int64 [1] tensor on `device` that kernels add the counter `name`
+    to, zero when first asked for (after import or `reset()`).  It is
+    zeroed on the device's current stream, ahead of the kernels the caller
+    enqueues there, so asking adds no synchronise."""
+    key = (name, torch.device(device))
+    t = _device_counters.get(key)
+    if t is None:
+        with _lock:
+            t = _device_counters.get(key)
+            if t is None:
+                t = torch.zeros(1, dtype=torch.int64, device=key[1])
+                _device_counters[key] = t
+    return t
+
+
+def _synchronize(devices) -> None:
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
 def snapshot() -> dict:
     """The registry as plain data: each span's count, total_s and self_s,
-    each counter, and the ring's records.  Waits for the device spans'
-    end events and folds their times in."""
+    each counter (device counters added in), and the ring's records.
+    Waits for the device spans' end events and folds their times in, and
+    synchronises the devices that hold device counters."""
     with _lock:
         pending = list(_pending)
         _pending.clear()
+        on_device = list(_device_counters.items())
     done = []
     for name, start, end in pending:
         end.synchronize()
         done.append((name, round(start.elapsed_time(end) * 1e6)))
+    _synchronize({dev for (_, dev), _t in on_device})
+    counted = [(name, int(t.sum())) for (name, _dev), t in on_device]
     with _lock:
         for name, ns in done:
             _add(name, ns, ns)
+        counters = dict(_counters)
+        for name, n in counted:
+            counters[name] = counters.get(name, 0) + n
         return {
             "spans": {n: {"count": c, "total_s": t * 1e-9,
                           "self_s": s * 1e-9}
                       for n, (c, t, s) in _stats.items()},
-            "counters": dict(_counters),
+            "counters": counters,
             "records": list(_records),
         }
 
 
 def reset() -> None:
-    """Forget every span, counter, record and pending device span."""
+    """Forget every span, counter, record, pending device span and device
+    counter (once the devices holding device counters are idle)."""
+    with _lock:
+        devices = {dev for (_, dev) in _device_counters}
+    _synchronize(devices)
     with _lock:
         _stats.clear()
         _counters.clear()
         _records.clear()
         _pending.clear()
+        _device_counters.clear()

@@ -262,6 +262,58 @@ def test_one_step_span_per_batch(tiny):
     assert _spans()["pa.step"]["count"] == 2
 
 
+def test_device_counter_is_read_and_reset():
+    """A device counter (a CPU tensor stands in for the card's) is one
+    int64 tensor a name and device, read by snapshot() into the counter of
+    its name, beside what the host counted under it, and forgotten by
+    reset()."""
+    t = spans.device_counter("pa.t.dev", "cpu")
+    assert t.dtype == torch.int64 and tuple(t.shape) == (1,) and int(t) == 0
+    assert spans.device_counter("pa.t.dev", torch.device("cpu")) is t
+    t += 5  # what a kernel's atomic add does on the card
+    assert spans.snapshot()["counters"]["pa.t.dev"] == 5
+    spans.count("pa.t.dev", 2)
+    t += 1
+    assert spans.snapshot()["counters"]["pa.t.dev"] == 8
+    assert spans.snapshot()["counters"]["pa.t.dev"] == 8  # read, not moved
+    spans.reset()
+    assert "pa.t.dev" not in spans.snapshot()["counters"]
+    again = spans.device_counter("pa.t.dev", "cpu")
+    assert again is not t and int(again) == 0
+
+
+def test_the_step_counts_its_reads(tiny):
+    """pa.seed.reads moves by B a step, beside pa.seed.tables by one; the
+    plain passes issue no K1 probe, so pa.seed.probes stays absent."""
+    image, reads = tiny
+    al = Pseudoaligner(image, AlignerConfig(k=20, max_read_len=L, **SERVING),
+                       device="cpu")
+    codes = torch.from_numpy(np.stack([w for _, w in reads[:24]]))
+    spans.reset()
+    mk.map_batch(al.meta, al.dev, codes, torch.full((24,), L,
+                                                    dtype=torch.int32))
+    mk.map_batch(al.meta, al.dev, codes[:10], torch.full((10,), L,
+                                                         dtype=torch.int32))
+    c = spans.snapshot()["counters"]
+    assert c["pa.seed.reads"] == 34 and c["pa.seed.tables"] == 2
+    assert "pa.seed.probes" not in c
+
+
+def test_seed_probes_per_read_reader():
+    """portbench's seed_probes_per_read: None while either counter is
+    absent (a program without them), then the device counter of probes
+    over the host counter of reads."""
+    read = _reader("seed_probes_per_read")
+    assert read(None) is None
+    spans.count("pa.seed.reads", 8)
+    assert read(None) is None
+    spans.device_counter("pa.seed.probes", "cpu").add_(100)
+    assert read(None) == 12.5
+    spans.reset()
+    spans.device_counter("pa.seed.probes", "cpu").add_(3)
+    assert read(None) is None
+
+
 RECORD_PATH = ("pa.prep.fetch", "pa.prep.remap_dispatch", "pa.prep.group",
                "pa.prep.siglists", "pa.fin.remap_collect", "pa.fin.patch",
                "pa.fin.emit", "pa.step", "pa.host_pack")
